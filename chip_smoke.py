@@ -10,14 +10,19 @@ exits non-zero:
    build time and the card's name and power limit;
 2. every entry point of the kernels K1-K4 against its plain PyTorch
    version on the card, on seeded random inputs plus the edge lanes (0, 1,
-   m - 1; P + inf, inf + P, P + P, P + (-P)): bit-exact, and timed at the
-   main path's widths;
+   m - 1; P + inf, inf + P, P + P, P + (-P)): bit-exact, and timed at 2^16
+   lanes beside its bound; the G2 add and double also at the main path's
+   widths (8 to 2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16), beside
+   their one-thread versions and every team size, with nvidia-smi's
+   clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7) must equal
    ``tests/fixtures/proof_2e5_seed3.bin``;
 4. the full-size run: log_n = 16, density 0, 4 public inputs, circuit seed
    0; setup -> index -> prove -> verify, each timed; verify must accept,
    and reject a proof with one opening byte changed and a wrong public
-   input; every kernel entry point must have launched during the run.
+   input; every kernel entry point must have launched during the run;
+5. five warm proves, then one under torch.profiler (device time by
+   kernel, the card's busy and idle share).
 
 The line before the last is a JSON object with one entry per kernel entry
 point; the last line is the contract object with the device.
@@ -58,7 +63,7 @@ class SeededFr:
         self._r = random.Random(seed)
 
     def sample_fr(self) -> int:
-        from spartan_tpu.host import field as hf
+        from spartan_tpu_torch.host import field as hf
 
         return self._r.randrange(hf.R)
 
@@ -85,9 +90,95 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def direct(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()):
+    """A call of entry point ``name`` through ctypes on fixed tensors, with
+    none of the wrapper's checks: timing it measures the kernel, not the host
+    (a few microseconds a call). It counts no launch."""
+    from spartan_tpu_torch import kernels
+
+    fn = getattr(kernels.load(), "spk_" + name)
+    ptrs = [t.data_ptr() for t in ins] + [out.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    n = out.shape[-1]
+
+    def call():
+        rc = fn(*ptrs, n, *args, stream)
+        check(rc == 0, f"{name}: cudaGetLastError() = {rc}")
+
+    return call
+
+
+class Card:
+    """Rates of an H100 SXM for the bounds: 3.35 TB/s of device memory, and 32-bit products at 64 IMADs per SM per
+    clock, two per 32x32->64 product, at the card's top SM clock."""
+
+    MEM_BYTES_PER_S = 3.35e12
+
+    def __init__(self):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True)
+        self.max_sm_mhz = float(out.stdout.split()[0])
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.products_per_s = self.sms * 32 * self.max_sm_mhz * 1e6
+
+    def bound(self, products: float, nbytes: float):
+        """(bound_ms, bound_by) for work of `products` 32x32->64 products
+        that must move `nbytes` bytes."""
+        t_ops = products / self.products_per_s * 1e3
+        t_mem = nbytes / self.MEM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+class ClockSampler:
+    """clocks.sm read by nvidia-smi every 200 ms while a phase runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = [tuple(float(x) for x in line.split(",")) for line in out.splitlines()
+                        if line.count(",") == 1 and "N/A" not in line]
+        return False
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "clocks.sm: no samples"
+        mhz = sorted(c for c, _w in self.samples)
+        watts = max(w for _c, w in self.samples)
+        return (f"clocks.sm over {len(mhz)} samples: min {mhz[0]:.0f} median "
+                f"{mhz[len(mhz) // 2]:.0f} max {mhz[-1]:.0f} MHz; power.draw max {watts:.1f} W")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+# 32x32->64 products per lane: an Fr product is 2 * 8^2, an Fp product
+# 2 * 12^2; Fp2 multiply 3 Fp products (Karatsuba), Fp2 square 2.
+FP_MUL, FP2_MUL, FP2_SQR = 288, 864, 576
+PRODUCTS = {
+    "fr_mul": 128, "fp_mul": FP_MUL,
+    "g1_double": 7 * FP_MUL, "g1_add": 16 * FP_MUL, "g1_madd": 11 * FP_MUL,
+    "g2_double": 2 * FP2_MUL + 5 * FP2_SQR, "g2_add": 12 * FP2_MUL + 4 * FP2_SQR,
+    "g2_madd": 8 * FP2_MUL + 3 * FP2_SQR,
+}
+# bytes a lane reads and writes: inputs once, the output once
+LANE_BYTES = {
+    "fr_mul": 96, "fr_add": 96, "fr_sub": 96, "fp_mul": 144, "fp_add": 144, "fp_sub": 144,
+    "g1_madd": 432, "g1_add": 432, "g1_double": 288, "g2_madd": 864, "g2_add": 864,
+    "g2_double": 576,
+}
+# G2 add and double widths: the openings' Horner steps (7-9 lanes), the
+# weighted reduce (224 = 7 levels x 32 windows up to 28,672 = x 128 buckets),
+# 2^16, and between them the widths where g2_team.cu changes team size.
+G2_WIDTHS = (8, 64, 224, 1024, 4096, 16_384, 28_672, 1 << 16)
+G2_KS = {8: (1, 4, 8), 28_672: (1, 4, 8), 1 << 16: (1, 4, 8)}  # k = 1 elsewhere
+TEAMS = (4, 8, 16)
 
 
 def _random_field(spec, n: int, rng: np.random.Generator, dev) -> torch.Tensor:
@@ -103,18 +194,37 @@ def _random_field(spec, n: int, rng: np.random.Generator, dev) -> torch.Tensor:
     return torch.from_numpy(limbs.view(np.int32).copy()).to(dev)
 
 
-def _random_points(group: str, n: int, rng: np.random.Generator, dev):
-    """n Jacobian points of ``group`` on the card, plus their affine twins.
-
-    64 host points, tiled, each lane rescaled by its own random lambda
-    ((x l^2, y l^3, z l)), so every lane is a distinct Jacobian
-    representation. Lanes 0-3 of (p, q) are the edge lanes inf + P, P + inf,
-    P + P and P + (-P); q is affine-encoded."""
-    from spartan_tpu.host import curve as hc
-    from spartan_tpu.host import field as hf
+def _jacobian(aff, rng: np.random.Generator):
+    """Each lane of an affine-encoded batch rescaled by its own random
+    lambda, (x l^2, y l^3, z l): a distinct Jacobian representation."""
     from spartan_tpu_torch.ops import curve as cv
     from spartan_tpu_torch.ops import field as fo
     from spartan_tpu_torch.ops.field import FP
+
+    n = aff.n
+    lam = _random_field(FP, n, rng, aff.device)
+    lam[:, :3] = lam[:, 3:6]  # no zero scale
+    lam2 = fo.mont_mul_plain(FP, lam, lam)
+    lam3 = fo.mont_mul_plain(FP, lam2, lam)
+    d = aff.data
+    if aff.group == "g1":
+        return cv.PointBatch(torch.stack([fo.mont_mul_plain(FP, d[0], lam2),
+                                          fo.mont_mul_plain(FP, d[1], lam3),
+                                          fo.mont_mul_plain(FP, d[2], lam)]), "g1")
+    v = d.permute(1, 0, 2)
+    x = fo.mont_mul_plain(FP, v[:, 0:2], lam2[:, None])  # both components
+    y = fo.mont_mul_plain(FP, v[:, 2:4], lam3[:, None])
+    z = fo.mont_mul_plain(FP, v[:, 4:6], lam[:, None])
+    return cv.PointBatch(torch.cat([x, y, z], dim=1).permute(1, 0, 2).contiguous(), "g2")
+
+
+def _random_points(group: str, n: int, rng: np.random.Generator, dev):
+    """n Jacobian points p of ``group`` on the card, q affine-encoded, and
+    their host twins. 64 host points, tiled. Lanes 0-3 of (p, q) are the edge
+    lanes inf + P, P + inf, P + P and P + (-P)."""
+    from spartan_tpu_torch.host import curve as hc
+    from spartan_tpu_torch.host import field as hf
+    from spartan_tpu_torch.ops import curve as cv
 
     ops = hc.G1 if group == "g1" else hc.G2
     gen = hf.G1_GEN if group == "g1" else hf.G2_GEN
@@ -128,29 +238,27 @@ def _random_points(group: str, n: int, rng: np.random.Generator, dev):
     q_host[1] = None  # P + inf
     q_host[2] = p_host[2]  # P + P
     q_host[3] = ops.neg(p_host[3])  # P + (-P)
-    p_aff = enc(p_host, dev)
-    q_aff = enc(q_host, dev)
-    lam = _random_field(FP, n, rng, dev)
-    lam[:, :3] = lam[:, 3:6]  # no zero scale on the edge lanes
-    lam2 = fo.mont_mul_plain(FP, lam, lam)
-    lam3 = fo.mont_mul_plain(FP, lam2, lam)
-    d = p_aff.data
-    if group == "g1":
-        pj = torch.stack([fo.mont_mul_plain(FP, d[0], lam2), fo.mont_mul_plain(FP, d[1], lam3),
-                          fo.mont_mul_plain(FP, d[2], lam)])
-    else:
-        v = d.permute(1, 0, 2)
-        x = fo.mont_mul_plain(FP, v[:, 0:2], lam2[:, None])  # both components
-        y = fo.mont_mul_plain(FP, v[:, 2:4], lam3[:, None])
-        z = fo.mont_mul_plain(FP, v[:, 4:6], lam[:, None])
-        pj = torch.cat([x, y, z], dim=1).permute(1, 0, 2).contiguous()
-    return cv.PointBatch(pj, group), q_aff, p_host, q_host
+    return _jacobian(enc(p_host, dev), rng), enc(q_host, dev), p_host, q_host
 
 
-def phase_kernels(dev, seed: int = 1234) -> list:
-    """Every entry point vs its plain version at TIMED_LANES lanes."""
-    from spartan_tpu.host import curve as hc
+def _add_products(op: str, p, q) -> int:
+    """Products the inputs need: none on a lane where P or Q is infinity, a
+    double where P == Q, the add's own count elsewhere."""
+    from spartan_tpu_torch.ops import curve as cv
+
+    inf = cv.is_infinity(p) | cv.is_infinity(q)
+    same = (cv.normalize(p).data == cv.normalize(q).data).reshape(-1, p.n).all(0) & ~inf
+    n_same, n_inf = int(same.sum()), int(inf.sum())
+    dbl = PRODUCTS[f"{p.group}_double"]
+    return n_same * dbl + (p.n - n_same - n_inf) * PRODUCTS[f"{p.group}_{op}"]
+
+
+def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
+    """Every entry point vs its plain version at TIMED_LANES lanes, and the
+    G2 add and double at G2_WIDTHS beside their one-thread versions and
+    every team size (the measurements behind g2_team.cu's team sizes)."""
     from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.host import curve as hc
     from spartan_tpu_torch.ops import curve as cv
     from spartan_tpu_torch.ops import field as fo
     from spartan_tpu_torch.ops.field import FP, FR
@@ -159,16 +267,19 @@ def phase_kernels(dev, seed: int = 1234) -> list:
     n = TIMED_LANES
     rows = []
 
-    def record(name, got, want, kernel_fn, plain_fn):
+    def record(name, got, want, kernel_fn, plain_fn, products, nbytes):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         check(torch.equal(got, want), f"{name}: kernel disagrees with its plain version")
         ms = cuda_ms(kernel_fn, 20)
         plain_ms = cuda_ms(plain_fn, 2)
+        bound_ms, bound_by = card.bound(products, nbytes)
         _n_in, src, rep = kernels.KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}",
-                     "replaces": rep, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        print(f"kernel {name:10s} lanes={n} bit-exact  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms",
-              flush=True)
+                     "replaces": rep, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print(f"kernel {name:10s} lanes={n} bit-exact  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        return rows[-1]
 
     for spec in (FR, FP):
         a = _random_field(spec, n, rng, dev)
@@ -177,6 +288,7 @@ def phase_kernels(dev, seed: int = 1234) -> list:
         for op, wrap, plain in (("mul", fo.mont_mul, fo.mont_mul_plain),
                                 ("add", fo.add, fo.add_plain),
                                 ("sub", fo.sub, fo.sub_plain)):
+            name = f"{spec.name}_{op}"
             got = wrap(spec, a, b)
             want = plain(spec, a, b)
             ints = fo.decode_ints(spec, got[:, :8])
@@ -185,26 +297,94 @@ def phase_kernels(dev, seed: int = 1234) -> list:
             host = {"mul": [x * y * spec.r_inv % m for x, y in zip(xs, ys)],
                     "add": [(x + y) % m for x, y in zip(xs, ys)],
                     "sub": [(x - y) % m for x, y in zip(xs, ys)]}[op]
-            check(ints == host, f"{spec.name}_{op}: first lanes disagree with Python integers")
-            record(f"{spec.name}_{op}", got, want, lambda: wrap(spec, a, b), lambda: plain(spec, a, b))
+            check(ints == host, f"{name}: first lanes disagree with Python integers")
+            record(name, got, want, direct(name, torch.empty_like(a), a, b),
+                   lambda: plain(spec, a, b), PRODUCTS.get(name, 0) * n, LANE_BYTES[name] * n)
 
     for group in ("g1", "g2"):
         ops = hc.G1 if group == "g1" else hc.G2
         dec = cv.g1_decode if group == "g1" else cv.g2_decode
         p, q, p_host, q_host = _random_points(group, n, rng, dev)
+        qj = _jacobian(q, rng)  # Q with its own Z, for the full add
         cases = (
-            ("madd", cv.add_mixed, cv.add_mixed_plain, (p, q), lambda i: ops.add(p_host[i], q_host[i])),
-            ("add", cv.add, cv.add_plain, (p, cv.double(q)),
-             lambda i: ops.add(p_host[i], ops.double(q_host[i]))),
-            ("double", cv.double, cv.double_plain, (p,), lambda i: ops.double(p_host[i])),
+            ("madd", cv.add_mixed, cv.add_mixed_plain, (p, q)),
+            ("add", cv.add, cv.add_plain, (p, qj)),
+            ("double", cv.double, cv.double_plain, (p,)),
         )
-        for op, wrap, plain, args, oracle in cases:
+        for op, wrap, plain, args in cases:
+            name = f"{group}_{op}"
             got = wrap(*args)
             want = plain(*args)
-            check(dec(got.take(slice(0, 8))) == [oracle(i) for i in range(8)],
-                  f"{group}_{op}: edge and first lanes disagree with the host oracle")
-            record(f"{group}_{op}", got.data, want.data, lambda: wrap(*args), lambda: plain(*args))
+            oracle = [ops.double(p_host[i]) if op == "double" else ops.add(p_host[i], q_host[i])
+                      for i in range(8)]
+            check(dec(got.take(slice(0, 8))) == oracle,
+                  f"{name}: edge and first lanes disagree with the host oracle")
+            ins = [a.data for a in args]
+            nbytes = LANE_BYTES[name] * n
+            products = PRODUCTS[name] * n if op == "double" else _add_products(op, *args)
+            extra = (1,) if name == "g2_double" else ()
+            record(name, got.data, want.data, direct(name, torch.empty_like(ins[0]), *ins, args=extra),
+                   lambda: plain(*args), products, nbytes)
+
+    g2 = {r["name"]: r for r in rows}
+    for lanes in G2_WIDTHS:
+        g2["g2_add"].setdefault("widths", []).append(_g2_width(card, "add", lanes, 1, rng, dev))
+        for k in G2_KS.get(lanes, (1,)):
+            g2["g2_double"].setdefault("widths", []).append(_g2_width(card, "double", lanes, k, rng, dev))
     return rows
+
+
+def _g2_width(card: Card, op: str, lanes: int, k: int, rng, dev) -> dict:
+    """g2_add (k = 1) or g2_double (2^k P) at `lanes` lanes: the entry point,
+    every team size and the one-thread kernel, each bit-exact against the
+    plain version, and timed beside the bound."""
+    from spartan_tpu_torch.ops import curve as cv
+
+    p, q, _ph, _qh = _random_points("g2", lanes, rng, dev)
+    qj = _jacobian(q, rng)
+    if op == "add":
+        ins, want = (p.data, qj.data), cv.add_plain(p, qj).data
+        got = cv.add(p, qj).data
+        products, nbytes = _add_products("add", p, qj), LANE_BYTES["g2_add"] * lanes
+        plain_fn = lambda: cv.add_plain(p, qj)  # noqa: E731
+    else:
+        ins, want = (p.data,), cv.double_plain(p, k).data
+        got = cv.double(p, k).data
+        products, nbytes = PRODUCTS["g2_double"] * lanes * k, LANE_BYTES["g2_double"] * lanes
+        plain_fn = lambda: cv.double_plain(p, k)  # noqa: E731
+    label = f"g2_{op} lanes={lanes} k={k}"
+    check(torch.equal(got, want), f"{label}: kernel disagrees with its plain version")
+    out = torch.empty_like(p.data)
+    entry = "g2_add" if op == "add" else "g2_double"
+    row = {"lanes": lanes, "k": k,
+           "ms": cuda_ms(direct(entry, out, *ins, args=() if op == "add" else (k,)), 20)}
+    for team in TEAMS:
+        call = direct(f"g2_{op}_team", out, *ins, args=(team,) if op == "add" else (k, team))
+        out.zero_()
+        call()
+        check(torch.equal(out, want), f"{label} team {team}: disagrees with the plain version")
+        row[f"team{team}_ms"] = cuda_ms(call, 20)
+    one = direct(f"g2_{op}_onethread", out, *ins)
+    if op == "add":
+        one()
+        check(torch.equal(out, want), f"{label} one-thread kernel: disagrees with the plain version")
+        row["onethread_ms"] = cuda_ms(one, 20)
+    else:  # k one-thread launches, each doubling the last result
+        tmp = torch.empty_like(out)
+        chain = [direct("g2_double_onethread", tmp if i % 2 == 0 else out,
+                        p.data if i == 0 else (out if i % 2 == 0 else tmp)) for i in range(k)]
+        for c in chain:
+            c()
+        check(torch.equal(tmp if k % 2 else out, want),
+              f"{label} one-thread kernel: disagrees with the plain version")
+        row["onethread_ms"] = cuda_ms(lambda: [c() for c in chain], 20)
+    row["plain_ms"] = cuda_ms(plain_fn, 2 if lanes > 1024 else 5)
+    row["bound_ms"], row["bound_by"] = card.bound(products, nbytes)
+    print(f"{label} bit-exact (entry, teams, one-thread): entry {row['ms']:.4f} ms  "
+          + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in TEAMS)
+          + f"  one-thread {row['onethread_ms']:.4f}  plain {row['plain_ms']:.3f}  "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +393,7 @@ def phase_kernels(dev, seed: int = 1234) -> list:
 
 
 def _circuit(log_n: int, log_v: int, density: int, seed: int):
-    from spartan_tpu.models.synthesizer import generate_circuit_with_random_input
+    from spartan_tpu_torch.models.synthesizer import generate_circuit_with_random_input
 
     cs, v, w = generate_circuit_with_random_input(
         num_public=1 << log_v, num_private=(1 << log_n) - (1 << log_v),
@@ -240,7 +420,7 @@ def phase_golden(dev) -> None:
 
 def _rejects(fn) -> str:
     """Run a verification expected to fail; return how it failed."""
-    from spartan_tpu.utils.errors import SpartanError
+    from spartan_tpu_torch.utils.errors import SpartanError
 
     try:
         ok = fn()
@@ -250,7 +430,7 @@ def _rejects(fn) -> str:
     return "returned False"
 
 
-def phase_full(dev, log_n: int = 16):
+def phase_full(dev, card: Card, log_n: int = 16):
     from spartan_tpu_torch import kernels, timers
     from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
     from spartan_tpu_torch.protocol.proof import Proof
@@ -272,9 +452,16 @@ def phase_full(dev, log_n: int = 16):
     kernels.reset_counts()
     (pp, vp), setup_s = timed(lambda: MLArgumentForR1CS.setup(log_n, SeededFr(42), dev))
     pk, index_s = timed(lambda: MLArgumentForR1CS.index(a, b, c, dev))
-    before_prove = dict(kernels.LAUNCHES)
+    before = (dict(kernels.LAUNCHES), dict(kernels.DOUBLINGS),
+              {k: dict(c) for k, c in kernels.LANES.items()})
     proof, prove_s = timed(lambda: MLArgumentForR1CS.prove(pk, v, w, pp))
-    prove_counts = {k: kernels.LAUNCHES[k] - before_prove.get(k, 0) for k in kernels.KERNELS}
+    prove_counts = {k: kernels.LAUNCHES[k] - before[0].get(k, 0) for k in kernels.KERNELS}
+    prove_doublings = {k: d - before[1].get(k, 0) for k, d in kernels.DOUBLINGS.items()}
+    prove_widths = {}  # kernel -> its three most launched (lanes, k) in the prove
+    for k, counts in kernels.LANES.items():
+        diff = {key: m - before[2].get(k, {}).get(key, 0) for key, m in counts.items()}
+        top = sorted(((m, key) for key, m in diff.items() if m), reverse=True)[:3]
+        prove_widths[k] = [[list(key), m] for m, key in top]
     ok, verify_s = timed(lambda: MLArgumentForR1CS.verify(pk.vk(), v, proof, vp))
     launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
     check(ok is True, "verify rejected the honest 2^16 proof")
@@ -283,6 +470,16 @@ def phase_full(dev, log_n: int = 16):
           f"verify {verify_s:.3f} s  proof {len(data)} bytes", flush=True)
     print("full: spans " + json.dumps({k: round(s, 4) for k, s in timers.SPANS.items()}), flush=True)
     print("full: prove launches " + json.dumps(prove_counts), flush=True)
+    print("full: prove doublings " + json.dumps(prove_doublings), flush=True)
+    print("full: prove [[lanes, (k)], launches], most launched first " + json.dumps(prove_widths),
+          flush=True)
+    bounds = {}  # the bound of one launch at the most launched shape; every lane counted
+    for k, top in prove_widths.items():
+        (lanes, *reps), _m = top[0]
+        nbytes = lanes * LANE_BYTES[k]
+        bounds[k] = card.bound(PRODUCTS.get(k, 0) * lanes * (reps[0] if reps else 1), nbytes)
+    print("full: prove, bound at the most launched shape [ms, by] " + json.dumps(bounds),
+          flush=True)
     for k in kernels.KERNELS:
         check(prove_counts[k] > 0, f"kernel {k} never launched during prove")
 
@@ -299,8 +496,58 @@ def phase_full(dev, log_n: int = 16):
     wrong_v[0] = (wrong_v[0] + 1)
     how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), wrong_v, proof, vp))
     print(f"full: wrong public input -> {how}", flush=True)
-    return launches, {"setup_s": setup_s, "index_s": index_s, "prove_s": prove_s,
-                      "verify_s": verify_s, "proof_bytes": len(data)}
+    return launches, lambda: MLArgumentForR1CS.prove(pk, v, w, pp)
+
+
+def phase_profile(prove, warm: int = 5) -> None:
+    """Warm proves on the host clock, then one under torch.profiler: device
+    time by kernel, and the share of the prove's wall time the card was busy
+    (the union of its kernel and copy intervals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spartan_tpu_torch import timers
+
+    walls = []
+    for _ in range(warm):
+        timers.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prove()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    print("profile: warm prove wall s " + json.dumps([round(x, 4) for x in walls])
+          + f" median {sorted(walls)[len(walls) // 2]:.4f}", flush=True)
+    print("profile: spans of the last warm prove " +
+          json.dumps({k: round(s, 4) for k, s in timers.SPANS.items()}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prove()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + (b - a), cnt + 1)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    if not spans:
+        print("profile: the profiler recorded no device activity; device time not measured",
+              flush=True)
+        return
+    busy_s = busy / 1e6
+    print(f"profile: prove under the profiler {wall:.4f} s, card busy {busy_s:.4f} s "
+          f"({100 * busy_s / wall:.1f} %), idle {100 * (1 - busy_s / wall):.1f} %", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    for name, (tot, cnt) in top:
+        print(f"profile: {tot / 1e3:9.3f} ms {cnt:6d} x  {100 * tot / busy:5.1f} %  {name[:90]}",
+              flush=True)
 
 
 def main() -> int:
@@ -319,9 +566,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"ptxas: {line.strip()}", flush=True)
 
-    rows = phase_kernels(dev)
+    card = Card()
+    with ClockSampler() as clocks:
+        rows = phase_kernels(dev, card)
+    print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
+          f"{card.sms} SMs", flush=True)
     phase_golden(dev)
-    launches, _full = phase_full(dev)
+    launches, prove = phase_full(dev, card)
+    phase_profile(prove)
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"kernel {row['name']} never launched in the main path")

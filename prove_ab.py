@@ -1,0 +1,92 @@
+"""Prove wall time at 2^16 of two checkouts of the port, in turns on one GPU.
+
+    python3 prove_ab.py DIR_A DIR_B [ROUNDS]
+
+Each round runs A, B, B, A, every run in a process of its own that imports
+``spartan_tpu_torch`` from its directory (each checkout builds its kernels
+once, into its own ``spartan_tpu_torch/build``). A run takes the circuit
+of chip_smoke.py's phase 4 (log_n = 16, density 0, circuit seed 0, key
+seed 42) from this script's checkout, sets up and indexes on the card, then
+proves once cold and five times warm. It prints one JSON line per run and, at the end, the
+median warm prove and "open G2 MSMs" span of each side.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import statistics
+import subprocess
+import sys
+import time
+
+
+def child(root: str) -> None:
+    # the circuit comes from this script's checkout, the prover from `root`
+    from spartan_tpu_torch.models.synthesizer import generate_circuit_with_random_input
+
+    log_n = 16
+    cs, v, w = generate_circuit_with_random_input(
+        num_public=4, num_private=(1 << log_n) - 4, pad_to_square=True, density=0,
+        rng=random.Random(0))
+    a, b, c = cs.to_matrices()
+    for name in [m for m in sys.modules if m.split(".")[0] == "spartan_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from spartan_tpu_torch import kernels, timers
+    from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
+
+    kernels.load()
+    dev = torch.device("cuda", 0)
+    key_rng = random.Random(42)
+
+    class Keys:
+        def sample_fr(self):
+            return key_rng.randrange(0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001)
+
+    pp, _vp = MLArgumentForR1CS.setup(log_n, Keys(), dev)
+    pk = MLArgumentForR1CS.index(a, b, c, dev)
+    walls, spans = [], []
+    for _ in range(6):
+        timers.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        MLArgumentForR1CS.prove(pk, v, w, pp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        spans.append(timers.SPANS.get("open G2 MSMs", float("nan")))
+    print(json.dumps({"root": root, "cold_s": walls[0], "warm_s": walls[1:],
+                      "open_g2_msms_s": spans[1:]}), flush=True)
+
+
+def main() -> int:
+    if sys.argv[1] == "--child":
+        child(sys.argv[2])
+        return 0
+    roots = {"A": sys.argv[1], "B": sys.argv[2]}
+    rounds = int(sys.argv[3]) if len(sys.argv) > 3 else 2
+    runs = {"A": [], "B": []}
+    for _ in range(rounds):
+        for side in "ABBA":
+            out = subprocess.run([sys.executable, __file__, "--child", roots[side]],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                raise SystemExit(f"{side} ({roots[side]}) failed:\n{out.stderr[-4000:]}")
+            line = out.stdout.strip().splitlines()[-1]
+            print(f"{side} {line}", flush=True)
+            runs[side].append(json.loads(line))
+    for side in "AB":
+        warm = [x for r in runs[side] for x in r["warm_s"]]
+        g2 = [x for r in runs[side] for x in r["open_g2_msms_s"]]
+        print(f"{side} {roots[side]}: warm prove median {statistics.median(warm):.4f} s "
+              f"(min {min(warm):.4f}, max {max(warm):.4f}, {len(warm)} proves); open G2 MSMs "
+              f"median {statistics.median(g2):.4f} s; cold "
+              + ", ".join(f"{r['cold_s']:.3f}" for r in runs[side]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,9 +19,9 @@ from typing import List, Optional
 
 import torch
 
-from spartan_tpu.utils import serialize as ser
 from spartan_tpu_torch.ops import curve as cv
 from spartan_tpu_torch.ops.curve import PointBatch
+from spartan_tpu_torch.utils import serialize as ser
 
 
 @dataclass

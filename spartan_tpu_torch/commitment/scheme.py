@@ -20,13 +20,12 @@ from typing import List, Tuple
 
 import torch
 
-from spartan_tpu.host import curve as hc
-from spartan_tpu.host import field as hf
-from spartan_tpu.host import pairing as hp
-from spartan_tpu.utils.errors import invalid_arg
 from spartan_tpu_torch.commitment.data_structures import (
     Commitment, OpenProof, PublicParameter, VerifierParameter,
 )
+from spartan_tpu_torch.host import curve as hc
+from spartan_tpu_torch.host import field as hf
+from spartan_tpu_torch.host import pairing as hp
 from spartan_tpu_torch.ops import curve as cv
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops import mle
@@ -34,6 +33,7 @@ from spartan_tpu_torch.ops import msm as msm_mod
 from spartan_tpu_torch.ops.curve import PointBatch
 from spartan_tpu_torch.ops.field import FR
 from spartan_tpu_torch.timers import span
+from spartan_tpu_torch.utils.errors import invalid_arg
 
 
 def _split_levels(batch: PointBatch, sizes: List[int]) -> List[PointBatch]:

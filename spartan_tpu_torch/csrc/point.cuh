@@ -1,5 +1,8 @@
 // Short-Weierstrass (a = 0) Jacobian point formulas, written once over the
-// coordinate field F: Fp for G1 (g1_ops.cu) and Fp2 for G2 (g2_ops.cu).
+// coordinate field F, one thread per point: Fp for the G1 kernels
+// (g1_ops.cu) and Fp2 for the G2 mixed add (g2_ops.cu). The G2 add and
+// double run the same formulas as team programs (g2_team.cuh), and
+// g2_ops.cu keeps this file's G2 add and double only as yardsticks.
 // The formulas and the edge-lane rules are those of the JAX package's
 // spartan_tpu/ops/curve.py (double :149, add :171, add_mixed :216), so a
 // kernel and the plain PyTorch version return the same Jacobian limbs.
@@ -11,15 +14,14 @@
 //
 // Point layout: a (C, 12, n) uint32 array, C = 3 coordinates for G1
 // (x, y, z) and C = 6 for G2 (x.c0, x.c1, y.c0, y.c1, z.c0, z.c1), one
-// point per lane and one thread per lane.
+// point per lane.
 //
 // What bounds these kernels on an H100: integer multiply-add issue inside
-// the Fp multiply (field.cuh), and registers. A G2 mixed add keeps about 36
-// Fp2 temporaries of 12 limbs live at its peak, more than the 255 registers
-// a thread may hold, so ptxas spills some to local memory (L1-resident).
-// The design keeps one thread per lane and 128 threads per block so a block
-// never runs out of registers; register pressure is left to later work
-// (fewer live temporaries, warp-cooperative limbs).
+// the Fp multiply (field.cuh), and registers: one thread holds every live
+// temporary of the formula. The G1 kernels fit (112 to 250 registers); over
+// Fp2 the mixed add needs more than the 255 a thread may hold and ptxas
+// spills to local memory. 128 threads per block, so a block never runs out
+// of registers.
 #pragma once
 
 #include "fp.cuh"

@@ -12,7 +12,13 @@ failed load raises ``KernelBuildError`` with the compiler's output.
 
 Every entry point has a launch counter in ``LAUNCHES``; ``launch`` adds one
 where it launches and nowhere else, so a run can show which kernels its path
-went through.
+went through. ``DOUBLINGS`` counts the doublings the double kernels did
+(one ``g2_double`` launch doubles k times) and ``LANES`` the launches of
+each kernel by lane count and int arguments.
+
+``YARDSTICKS`` are entry points that only ``chip_smoke.py`` calls, to time a
+kernel against other versions of it (the G2 team kernels at each team size,
+the one-thread G2 add and double); they count no launches.
 """
 
 from __future__ import annotations
@@ -49,11 +55,24 @@ KERNELS = {
     "g1_add": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:378"),
     "g1_double": (1, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:392"),
     "g2_madd": (2, "g2_ops.cu", "spartan_tpu/ops/pallas_curve.py:410"),
-    "g2_add": (2, "g2_ops.cu", "spartan_tpu/ops/pallas_curve.py:399"),
-    "g2_double": (1, "g2_ops.cu", "spartan_tpu/ops/pallas_curve.py:421"),
+    "g2_add": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:399"),
+    "g2_double": (1, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:421"),
+}
+
+# entry point -> number of int arguments after the lane count
+INT_ARGS = {"g2_double": 1}  # k: the launch returns 2^k P
+
+# yardstick -> (number of input arrays, number of int arguments)
+YARDSTICKS = {
+    "g2_add_team": (2, 1),  # team size
+    "g2_double_team": (1, 2),  # k, team size
+    "g2_add_onethread": (2, 0),
+    "g2_double_onethread": (1, 0),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+DOUBLINGS: collections.Counter = collections.Counter()
+LANES: collections.defaultdict = collections.defaultdict(collections.Counter)  # name -> {(n, *args): launches}
 
 
 class KernelBuildError(RuntimeError):
@@ -70,6 +89,8 @@ build_seconds = None  # wall time of the build this process ran (None: none ran)
 
 def reset_counts() -> None:
     LAUNCHES.clear()
+    DOUBLINGS.clear()
+    LANES.clear()
 
 
 def _find_nvcc() -> str:
@@ -146,10 +167,11 @@ def load():
         lib = ctypes.CDLL(str(so))
     except OSError as e:
         raise KernelBuildError(f"cannot load {so}: {e}") from e
-    vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name, (n_in, _src, _rep) in KERNELS.items():
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sigs = {name: (n_in, INT_ARGS.get(name, 0)) for name, (n_in, _s, _r) in KERNELS.items()}
+    for name, (n_in, n_int) in {**sigs, **YARDSTICKS}.items():
         fn = getattr(lib, "spk_" + name)
-        fn.argtypes = [vp] * (n_in + 1) + [i64, vp]
+        fn.argtypes = [vp] * (n_in + 1) + [i64] + [i32] * n_int + [vp]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -160,12 +182,13 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
-def launch(name: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
+def launch(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()) -> torch.Tensor:
     """Launch kernel ``name`` on CUDA tensors: inputs and output share one
-    shape (limb-major, lanes last), dtype int32, one device, contiguous."""
-    n_in = KERNELS[name][0]
-    if len(ins) != n_in:
-        raise ValueError(f"{name}: expected {n_in} inputs, got {len(ins)}")
+    shape (limb-major, lanes last), dtype int32, one device, contiguous.
+    ``args`` are the entry point's int arguments after the lane count."""
+    if len(ins) != KERNELS[name][0] or len(args) != INT_ARGS.get(name, 0):
+        raise ValueError(f"{name}: expected {KERNELS[name][0]} inputs and "
+                         f"{INT_ARGS.get(name, 0)} int arguments")
     for t in (out, *ins):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, kernel needs CUDA")
@@ -180,12 +203,14 @@ def launch(name: str, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
     n = out.shape[-1]
     if n == 0:
         return out
-    lib = load()
-    fn = getattr(lib, "spk_" + name)
+    fn = getattr(load(), "spk_" + name)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in ins], out.data_ptr(), n, stream)
+        rc = fn(*[t.data_ptr() for t in ins], out.data_ptr(), n, *args, stream)
     if rc != 0:
         raise KernelLaunchError(f"{name}: cudaGetLastError() = {rc} at launch (n={n})")
     LAUNCHES[name] += 1
+    LANES[name][(n, *args)] += 1
+    if name.endswith("_double"):
+        DOUBLINGS[name] += args[0] if args else 1
     return out

@@ -7,7 +7,8 @@ is Z = 0; after ``normalize`` it is x = y = z = 0, and a finite affine point
 has z = 1 (Montgomery one).
 
 ``double``, ``add`` and ``add_mixed`` are the wrappers of the point kernels
-K3 (G1, ``csrc/g1_ops.cu``) and K4 (G2, ``csrc/g2_ops.cu``). For CPU
+K3 (G1, ``csrc/g1_ops.cu``) and K4 (G2, ``csrc/g2_ops.cu``); the G2 double
+takes a repeat count k and returns 2^k P in one launch. For CPU
 tensors they run the plain PyTorch versions beside them (``*_plain``), which
 evaluate the same formulas (dbl-2009-l, add-2007-bl, madd-2007-bl, a = 0)
 with the same edge-lane rules, so kernel and plain version agree limb for
@@ -165,10 +166,14 @@ def _resolve(f, p, q, x3, y3, z3, h, r):
     return PointBatch(out, p.group)
 
 
-def double_plain(p: PointBatch) -> PointBatch:
-    """dbl-2009-l (a = 0); infinity stays infinity (Z = 0)."""
+def double_plain(p: PointBatch, k: int = 1) -> PointBatch:
+    """2^k P by k doublings, dbl-2009-l (a = 0); infinity stays infinity
+    (Z = 0)."""
     f = _PLAIN[p.group]
-    return PointBatch(f.pack(*_double_coords(f, *f.coords(p.data))), p.group)
+    data = p.data
+    for _ in range(k):
+        data = f.pack(*_double_coords(f, *f.coords(data)))
+    return PointBatch(data, p.group)
 
 
 def add_plain(p: PointBatch, q: PointBatch) -> PointBatch:
@@ -210,21 +215,28 @@ def add_mixed_plain(p: PointBatch, q: PointBatch) -> PointBatch:
 # ---------------------------------------------------------------------------
 
 
-def _launch(op: str, p: PointBatch, q: PointBatch = None) -> PointBatch:
+def _launch(op: str, p: PointBatch, q: PointBatch = None, args=()) -> PointBatch:
     ins = [p.data.contiguous()]
     if q is not None:
         if q.group != p.group or q.n != p.n:
             raise ValueError("point batches differ in group or length")
         ins.append(q.data.contiguous())
     out = torch.empty_like(ins[0])
-    kernels.launch(f"{p.group}_{op}", out, *ins)
+    kernels.launch(f"{p.group}_{op}", out, *ins, args=args)
     return PointBatch(out, p.group)
 
 
-def double(p: PointBatch) -> PointBatch:
+def double(p: PointBatch, k: int = 1) -> PointBatch:
+    """2^k P: one launch of the G2 kernel, k launches of the G1 one."""
+    if k < 1:
+        raise ValueError(f"doubling count k = {k} must be positive")
     if p.device.type == "cpu":
-        return double_plain(p)
-    return _launch("double", p)
+        return double_plain(p, k)
+    if p.group == "g2":
+        return _launch("double", p, args=(k,))
+    for _ in range(k):
+        p = _launch("double", p)
+    return p
 
 
 def add(p: PointBatch, q: PointBatch) -> PointBatch:

@@ -26,8 +26,8 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 import torch
 
-from spartan_tpu.host import field as hf
 from spartan_tpu_torch import kernels
+from spartan_tpu_torch.host import field as hf
 
 __all__ = [
     "FieldSpec", "FR", "FP",

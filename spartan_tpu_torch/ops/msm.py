@@ -19,8 +19,8 @@ Variable-base pipeline, for L problems at once:
    ceil(log2(longest run)) levels;
 4. the weighted bucket sum sum_b (b + 1) S_b of every window by a pair
    tree (``_weighted_reduce``);
-5. Horner across windows with c doublings per window, batched over the L
-   problems.
+5. Horner across windows, batched over the L problems: c doublings per
+   window, one G2 launch with k = c (c launches for G1).
 """
 
 from __future__ import annotations
@@ -193,8 +193,7 @@ def msm_many(points: PointBatch, sizes: Sequence[int], scalars: torch.Tensor, c:
     result = cv.infinity(points.group, L, dev)
     for w in range(nw - 1, -1, -1):
         if w != nw - 1:
-            for _ in range(c):
-                result = cv.double(result)
+            result = cv.double(result, c)
         result = cv.add(result, PointBatch(wsums[..., w].contiguous(), points.group))
     return result
 

@@ -13,16 +13,16 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-from spartan_tpu.models.r1cs import Matrix
-from spartan_tpu.utils import serialize as ser
-from spartan_tpu.utils.errors import invalid_arg
-from spartan_tpu.utils.transcript import Blake2sRng
 from spartan_tpu_torch.commitment import PublicParameter, VerifierParameter, keygen
+from spartan_tpu_torch.models.r1cs import Matrix
 from spartan_tpu_torch.protocol import prover as pr
 from spartan_tpu_torch.protocol import verifier as vr
 from spartan_tpu_torch.protocol.indexer import IndexPK, IndexVK, index as _index
 from spartan_tpu_torch.protocol.proof import Proof
 from spartan_tpu_torch.timers import span
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.errors import invalid_arg
+from spartan_tpu_torch.utils.transcript import Blake2sRng
 
 
 def _transcript(matrices, v: List[int]) -> Blake2sRng:

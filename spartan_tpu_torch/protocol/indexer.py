@@ -13,11 +13,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spartan_tpu.models.r1cs import Matrix, matrix_to_coo, validate_matrix
-from spartan_tpu.utils import serialize as ser
-from spartan_tpu.utils.errors import invalid_arg
+from spartan_tpu_torch.models.r1cs import Matrix, matrix_to_coo, validate_matrix
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops.field import FR
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.errors import invalid_arg
 
 
 @dataclass

@@ -11,8 +11,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List
 
-from spartan_tpu.utils import serialize as ser
-from spartan_tpu.utils.errors import SerializationError
 from spartan_tpu_torch.commitment.data_structures import Commitment, OpenProof
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol.prover import (
@@ -23,6 +21,8 @@ from spartan_tpu_torch.protocol.prover import (
     ProverSixthMessage,
     ProverThirdMessage,
 )
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.errors import SerializationError
 
 
 @dataclass

@@ -15,11 +15,9 @@ from typing import List, Optional
 
 import torch
 
-from spartan_tpu.host import field as hf
-from spartan_tpu.utils import serialize as ser
-from spartan_tpu.utils.errors import invalid_arg
 from spartan_tpu_torch.commitment import PublicParameter, commit, open_poly
 from spartan_tpu_torch.commitment.data_structures import Commitment, OpenProof
+from spartan_tpu_torch.host import field as hf
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops import mle, sparse
 from spartan_tpu_torch.ops import sumcheck as sck
@@ -27,6 +25,8 @@ from spartan_tpu_torch.ops.field import FR
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol.indexer import IndexPK
 from spartan_tpu_torch.timers import span
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.errors import invalid_arg
 
 
 def ell(tor_j: int, t: int) -> int:

@@ -12,9 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from spartan_tpu.host import field as hf
-from spartan_tpu.utils import serialize as ser
-from spartan_tpu.utils.errors import SumCheckError, invalid_arg
+from spartan_tpu_torch.host import field as hf
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.errors import SumCheckError, invalid_arg
 
 
 # ---------------------------------------------------------------------------

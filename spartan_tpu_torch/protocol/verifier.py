@@ -5,7 +5,7 @@ Counterpart of ``spartan_tpu/protocol/verifier.py``. Every real check runs
 in ``verify_sixth_round``: both polynomial-commitment openings (host
 pairings), the public-input evaluation, both sumcheck subclaims, and the
 matrix evaluations A, B, C(r_x, r_y) through the native O(nnz) walk
-(``spartan_tpu/host/native.py:matrix_eval3_native``).
+(``host/native.py:matrix_eval3_native``).
 """
 
 from __future__ import annotations
@@ -13,11 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List
 
-from spartan_tpu.host import field as hf
-from spartan_tpu.host import native as _native
-from spartan_tpu.utils.errors import WrongWitness, invalid_arg
 from spartan_tpu_torch.commitment import VerifierParameter, verify as pc_verify
 from spartan_tpu_torch.commitment.data_structures import Commitment, OpenProof
+from spartan_tpu_torch.host import field as hf
+from spartan_tpu_torch.host import native as _native
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol.indexer import IndexVK
 from spartan_tpu_torch.protocol.prover import (
@@ -30,6 +29,7 @@ from spartan_tpu_torch.protocol.prover import (
     ell,
 )
 from spartan_tpu_torch.timers import span
+from spartan_tpu_torch.utils.errors import WrongWitness, invalid_arg
 
 
 # -- verifier messages (sampled; the prover derives the same via FS) --------

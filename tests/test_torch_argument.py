@@ -14,9 +14,9 @@ import torch
 
 from spartan_tpu.host import field as hf
 from spartan_tpu.models.synthesizer import generate_circuit_with_random_input
-from spartan_tpu.utils.errors import SpartanError
 from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
 from spartan_tpu_torch.protocol.proof import Proof
+from spartan_tpu_torch.utils.errors import SpartanError
 
 torch.set_num_threads(1)  # small int64 tensors: one intra-op thread is fastest
 

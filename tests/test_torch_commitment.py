@@ -104,3 +104,17 @@ def test_commit_open_verify(keys):
     assert [q.shape[1] for q in q_tables] == [4, 2, 1]
     assert verify(vp, com, point, ev, proof)
     assert not verify(vp, com, point, (ev + 1) % hf.R, proof)
+
+
+def test_native_pairing_product_matches_jax_package():
+    from spartan_tpu.host import pairing as jhp
+    from spartan_tpu_torch.host import pairing as thp
+
+    rng = random.Random(6)
+    a, b = rng.randrange(1, hf.R), rng.randrange(1, hf.R)
+    pairs = [(hc.G1.mul(hf.G1_GEN, a), hc.G2.mul(hf.G2_GEN, b)),
+             (hc.G1.neg(hf.G1_GEN), hc.G2.mul(hf.G2_GEN, a * b)), (None, hf.G2_GEN)]
+    got = thp.product_of_pairings(pairs)
+    assert got == jhp.product_of_pairings(pairs)
+    # e(aG, bH) e(-G, abH) = 1: bilinearity, in the cubed GT the port returns
+    assert thp.product_of_pairings(pairs[:2]) == thp.pairing(None, hf.G2_GEN)

@@ -99,3 +99,101 @@ def test_wrapper_never_falls_back_off_cpu():
     p = tcv.infinity("g1", 4, device="meta")
     with pytest.raises(ValueError, match="kernel needs CUDA"):
         tcv.double(p)
+
+
+def test_host_field_constants_match_jax_package():
+    from spartan_tpu_torch.host import field as thf
+
+    for name in ("P", "R", "B_G1", "B_G2", "G1_GEN", "G2_GEN", "FP2_ZERO", "FP2_ONE"):
+        assert getattr(thf, name) == getattr(hf, name), name
+    rng = random.Random(2)
+    a = (rng.randrange(hf.P), rng.randrange(hf.P))
+    b = (rng.randrange(hf.P), rng.randrange(hf.P))
+    for fn in ("fp2_add", "fp2_sub", "fp2_mul"):
+        assert getattr(thf, fn)(a, b) == getattr(hf, fn)(a, b), fn
+    for fn in ("fp2_neg", "fp2_sq", "fp2_inv"):
+        assert getattr(thf, fn)(a) == getattr(hf, fn)(a), fn
+    assert thf.fr_inv(a[0] % hf.R) == hf.fr_inv(a[0] % hf.R)
+    assert thf.fp_inv(a[0]) == hf.fp_inv(a[0])
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_host_curve_ops_match_jax_package(group):
+    from spartan_tpu_torch.host import curve as thc
+
+    ops, gen = GROUPS[group][:2]
+    mine = thc.G1 if group == "g1" else thc.G2
+    rng = random.Random(5)
+    k1, k2 = rng.randrange(hf.R), rng.randrange(1 << 64)
+    p, q = mine.mul(gen, k1), mine.mul(gen, k2)
+    assert p == ops.mul(gen, k1) and q == ops.mul(gen, k2)
+    assert mine.add(p, q) == ops.add(p, q)
+    assert mine.double(p) == ops.double(p)
+    assert mine.add(p, mine.neg(p)) is None
+    assert mine.add(None, q) == q and mine.double(None) is None
+    assert mine.is_on_curve(mine.add(p, q))
+    if group == "g1":
+        assert thc.g1_lincomb([p, q], [3, 5]) == hc.g1_lincomb([p, q], [3, 5])
+
+
+_JAX_G2_DOUBLINGS = {}
+
+
+def _jax_g2_doublings(upto: int):
+    """2^j P for j = 1..upto by the JAX package's jnp double (G2_FIELD), on
+    the test lanes (infinity among them), computed once."""
+    if not _JAX_G2_DOUBLINGS:
+        _ops, ps, _qs = _lanes("g2")
+        jp = jcv.double(jcv.G2_FIELD, jcv.g2_encode(ps))  # Jacobian, Z != 1
+        _JAX_G2_DOUBLINGS[0] = jp
+        for j in range(1, upto + 1):
+            jp = jcv.double(jcv.G2_FIELD, jp)
+            _JAX_G2_DOUBLINGS[j] = jp
+    return _JAX_G2_DOUBLINGS
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_g2_k_fold_double_matches_k_jax_doubles(k):
+    jd = _jax_g2_doublings(8)
+    start = _jax_to_port(jd[0], "g2")
+    got = tcv.double(start, k)
+    assert torch.equal(got.data, tcv.double_plain(start, k).data)
+    assert torch.equal(got.data, _jax_to_port(jd[k], "g2").data)
+    ops, ps, _qs = _lanes("g2")
+    want = [ops.double(p) for p in ps]
+    for _ in range(k):
+        want = [ops.double(p) for p in want]
+    assert tcv.g2_decode(got) == want
+    assert want[3] is None  # the infinity lane stays infinity
+
+
+def test_g2_team_header_is_generated_from_the_programs():
+    from spartan_tpu_torch.ops import g2_team
+
+    assert g2_team.HEADER.read_text() == g2_team.emit_header()
+
+
+def _coords(batch, lane):
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops.field import FP
+
+    return fo.decode_mont(FP, batch.data[:, :, lane].T.contiguous())
+
+
+@pytest.mark.parametrize("op", ["add", "double"])
+def test_g2_team_programs_match_plain_formulas(op):
+    """The stage programs the team kernels run, with the kernel's edge rules,
+    on every test lane (P + Q, P + P, P + (-P), inf + P, P + inf)."""
+    from spartan_tpu_torch.ops import g2_team
+
+    ops, ps, qs = _lanes("g2")
+    qs2 = list(qs)
+    qs2[1] = ps[1]
+    tp = tcv.double(tcv.g2_encode(ps))
+    tq = tcv.double(tcv.g2_encode(qs2))
+    want = tcv.add_plain(tp, tq) if op == "add" else tcv.double_plain(tp, 3)
+    for lane in range(tp.n):
+        pc = _coords(tp, lane)
+        got = g2_team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
+            g2_team.team_double(pc, 3, hf.P)
+        assert got == _coords(want, lane), lane

@@ -1,11 +1,14 @@
-"""The port stands without JAX, and its kernels are never silently replaced.
+"""The port stands alone, and its kernels are never silently replaced.
 
 - every spartan_tpu_torch module imports in a fresh interpreter without
-  pulling in jax;
+  pulling in jax or any module of the JAX package spartan_tpu;
+- no source of the port and no line of chip_smoke.py or prove_ab.py
+  imports spartan_tpu;
 - the kernel loader raises (and returns no None) where nvcc is absent;
 - on a CUDA card, each kernel matches its plain version (skipped here).
 """
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -35,7 +38,8 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'spartan_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -43,6 +47,24 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_no_port_source_imports_the_jax_package():
+    files = sorted((REPO / "spartan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                  REPO / "prove_ab.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}:{line} imports {root}" for f in files
+           for line, root in _imported_roots(f) if root in ("jax", "spartan_tpu")]
+    assert not bad, bad
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch):
@@ -58,7 +80,10 @@ def test_kernel_table_names_sources():
         assert n_in in (1, 2)
         assert (kernels.CSRC / src).exists(), src
         assert rep.startswith("spartan_tpu/ops/pallas_")
-        assert f"spk_{name}" in (kernels.CSRC / src).read_text()
+        assert f"spk_{name}(" in (kernels.CSRC / src).read_text()
+    sources = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
+    assert set(kernels.INT_ARGS) <= set(kernels.KERNELS)
+    assert all(f"spk_{name}(" in sources for name in kernels.YARDSTICKS)
 
 
 @pytest.mark.gpu
@@ -68,11 +93,11 @@ def test_kernels_match_plain_on_card():
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
-    old = chip_smoke.TIMED_LANES
-    chip_smoke.TIMED_LANES = 1 << 10
+    old = chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS
+    chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS = 1 << 10, (8, 1 << 10)
     try:
-        rows = chip_smoke.phase_kernels(torch.device("cuda", 0))
+        rows = chip_smoke.phase_kernels(torch.device("cuda", 0), chip_smoke.Card())
     finally:
-        chip_smoke.TIMED_LANES = old
+        chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS = old
     assert {r["name"] for r in rows} == set(kernels.KERNELS)
     assert all(r["max_abs_err"] == 0 for r in rows)

@@ -11,11 +11,11 @@ import pytest
 from spartan_tpu.host import field as hf
 from spartan_tpu.protocol import indexer as jindexer
 from spartan_tpu.protocol.proof import Proof as JaxProof
-from spartan_tpu.utils.errors import SpartanError
 from spartan_tpu_torch import timers
 from spartan_tpu_torch.protocol import indexer as tindexer
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol.proof import Proof
+from spartan_tpu_torch.utils.errors import SpartanError
 
 GOLDEN = pathlib.Path(__file__).parent / "fixtures" / "proof_2e5_seed3.bin"
 
@@ -161,3 +161,53 @@ def test_spans_accumulate_per_label():
     assert all(s >= 0.0 for s in timers.SPANS.values())
     timers.reset()
     assert not timers.SPANS
+
+# -- the port's own host layer against the JAX package's ----------------------
+
+
+def test_serialize_bytes_match_jax_package():
+    from spartan_tpu.utils import serialize as jser
+    from spartan_tpu_torch.host import curve as thc
+    from spartan_tpu_torch.utils import serialize as tser
+
+    a, _b, _c = _matrices()
+    assert tser.ser_matrix(a) == tser.ser_matrix_py(a) == jser.ser_matrix(a)
+    rng = random.Random(4)
+    xs = [rng.randrange(hf.R) for _ in range(3)]
+    assert tser.ser_fr_vec(xs) == jser.ser_fr_vec(xs)
+    for ops, ser, jser_pt, deser in ((thc.G1, tser.ser_g1, jser.ser_g1, tser.deser_g1),
+                                     (thc.G2, tser.ser_g2, jser.ser_g2, tser.deser_g2)):
+        gen = hf.G1_GEN if ops is thc.G1 else hf.G2_GEN
+        for pt in (ops.mul(gen, rng.randrange(hf.R)), ops.neg(gen), None):
+            data = ser(pt)
+            assert data == jser_pt(pt)
+            assert deser(data) == (pt, len(data))
+
+
+def test_transcript_stream_matches_jax_package():
+    from spartan_tpu.utils.transcript import Blake2sRng as JaxRng
+    from spartan_tpu_torch.utils.transcript import Blake2sRng
+
+    mine, ref, py = Blake2sRng.setup(), JaxRng.setup(), Blake2sRng.setup()
+    py._native = None  # the Python stream must equal the native one
+    seed = random.Random(8).randbytes(77)
+    for fs in (mine, ref, py):
+        fs.feed(seed)
+    want = ref.sample_fr_vec(5)
+    assert mine.sample_fr_vec(5) == py.sample_fr_vec(5) == want
+    for fs in (mine, ref, py):
+        fs.feed(b"round 2")
+    assert mine.next_bytes(40) == py.next_bytes(40) == ref.next_bytes(40)
+
+
+def test_synthesizer_circuit_matches_jax_package():
+    from spartan_tpu.models.synthesizer import generate_circuit_with_random_input as jgen
+    from spartan_tpu_torch.models.synthesizer import generate_circuit_with_random_input as tgen
+
+    cs, v, w = tgen(num_public=4, num_private=(1 << 5) - 4, pad_to_square=True, density=1,
+                    rng=random.Random(3))
+    jcs, jv, jw = jgen(num_public=4, num_private=(1 << 5) - 4, pad_to_square=True, density=1,
+                       rng=random.Random(3))
+    assert (v, w) == (jv, jw)
+    assert cs.to_matrices() == jcs.to_matrices()
+    assert cs.is_satisfied()

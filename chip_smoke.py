@@ -12,10 +12,13 @@ exits non-zero:
    version on the card, on seeded random inputs plus the edge lanes (0, 1,
    m - 1; P + inf, inf + P, P + P, P + (-P)): bit-exact, and timed at 2^16
    lanes beside its bound; the G2 add and double also at the main path's
-   widths (8 to 2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16), beside
-   their one-thread versions and every team size, with nvidia-smi's
-   clocks.sm sampled;
-3. the 2^5 golden proof (circuit seed 3, key seed 7) must equal
+   widths (8 to 2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16) and the G2
+   mixed add at 8, 4,096, 2^16 and 1,029,085 lanes, beside their
+   one-thread versions and every team size; the Fp inversion at 1, 16 and
+   4,096 lanes beside its one-thread version and the fp_mul chain it
+   replaced; nvidia-smi's clocks.sm sampled;
+3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
+   called without a device (they default to the card), must equal
    ``tests/fixtures/proof_2e5_seed3.bin``;
 4. the full-size run: log_n = 16, density 0, 4 public inputs, circuit seed
    0; setup -> index -> prove -> verify, each timed; verify must accept,
@@ -33,6 +36,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -161,15 +165,19 @@ class ClockSampler:
 # 32x32->64 products per lane: an Fr product is 2 * 8^2, an Fp product
 # 2 * 12^2; Fp2 multiply 3 Fp products (Karatsuba), Fp2 square 2.
 FP_MUL, FP2_MUL, FP2_SQR = 288, 864, 576
+# The Fermat inversion's chain (csrc/fp_inv.cuh): 14 table products, 380
+# squares and 91 table products over p - 2.
+FP_INV_PRODUCTS = 485
 PRODUCTS = {
     "fr_mul": 128, "fp_mul": FP_MUL,
     "g1_double": 7 * FP_MUL, "g1_add": 16 * FP_MUL, "g1_madd": 11 * FP_MUL,
     "g2_double": 2 * FP2_MUL + 5 * FP2_SQR, "g2_add": 12 * FP2_MUL + 4 * FP2_SQR,
-    "g2_madd": 8 * FP2_MUL + 3 * FP2_SQR,
+    "g2_madd": 8 * FP2_MUL + 3 * FP2_SQR, "fp_inv": FP_INV_PRODUCTS * FP_MUL,
 }
 # bytes a lane reads and writes: inputs once, the output once
 LANE_BYTES = {
     "fr_mul": 96, "fr_add": 96, "fr_sub": 96, "fp_mul": 144, "fp_add": 144, "fp_sub": 144,
+    "fp_inv": 96,
     "g1_madd": 432, "g1_add": 432, "g1_double": 288, "g2_madd": 864, "g2_add": 864,
     "g2_double": 576,
 }
@@ -178,7 +186,11 @@ LANE_BYTES = {
 # 2^16, and between them the widths where g2_team.cu changes team size.
 G2_WIDTHS = (8, 64, 224, 1024, 4096, 16_384, 28_672, 1 << 16)
 G2_KS = {8: (1, 4, 8), 28_672: (1, 4, 8), 1 << 16: (1, 4, 8)}  # k = 1 elsewhere
+# G2 mixed add widths: small, 4,096, 2^16 and the openings' first bucket
+# level at 2^16 (the widest launch of the prove)
+G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
 TEAMS = (4, 8, 16)
+FP_INV_LANES = (1, 16, 4096)  # the prover inverts 1 lane at a time
 
 
 def _random_field(spec, n: int, rng: np.random.Generator, dev) -> torch.Tensor:
@@ -220,8 +232,9 @@ def _jacobian(aff, rng: np.random.Generator):
 
 def _random_points(group: str, n: int, rng: np.random.Generator, dev):
     """n Jacobian points p of ``group`` on the card, q affine-encoded, and
-    their host twins. 64 host points, tiled. Lanes 0-3 of (p, q) are the edge
-    lanes inf + P, P + inf, P + P and P + (-P)."""
+    the host twins of their first 8 lanes. 64 host points and their
+    negations, encoded once and gathered on the card. Lanes 0-3 of (p, q)
+    are the edge lanes inf + P, P + inf, P + P and P + (-P)."""
     from spartan_tpu_torch.host import curve as hc
     from spartan_tpu_torch.host import field as hf
     from spartan_tpu_torch.ops import curve as cv
@@ -232,13 +245,16 @@ def _random_points(group: str, n: int, rng: np.random.Generator, dev):
     base = [ops.mul(gen, 1 + int(rng.integers(1, 1 << 62)))]
     for _ in range(63):
         base.append(ops.add(base[-1], base[0]))
-    p_host = [base[i % 64] for i in range(n)]
-    q_host = [base[(7 * i + 3) % 64] for i in range(n)]
-    p_host[0] = None  # inf + P
-    q_host[1] = None  # P + inf
-    q_host[2] = p_host[2]  # P + P
-    q_host[3] = ops.neg(p_host[3])  # P + (-P)
-    return _jacobian(enc(p_host, dev), rng), enc(q_host, dev), p_host, q_host
+    table = base + [ops.neg(b) for b in base] + [None]  # 64 + i: -base[i]; 128: inf
+    lanes = np.arange(n)
+    pi, qi = lanes % 64, (7 * lanes + 3) % 64
+    pi[0] = 128  # inf + P
+    qi[1] = 128  # P + inf
+    qi[2] = pi[2]  # P + P
+    qi[3] = 64 + pi[3]  # P + (-P)
+    enc_table = enc(table, dev)
+    p, q = (enc_table.take(torch.from_numpy(i).to(dev)) for i in (pi, qi))
+    return (_jacobian(p, rng), q, [table[i] for i in pi[:8]], [table[i] for i in qi[:8]])
 
 
 def _add_products(op: str, p, q) -> int:
@@ -331,41 +347,45 @@ def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
         g2["g2_add"].setdefault("widths", []).append(_g2_width(card, "add", lanes, 1, rng, dev))
         for k in G2_KS.get(lanes, (1,)):
             g2["g2_double"].setdefault("widths", []).append(_g2_width(card, "double", lanes, k, rng, dev))
+    for lanes in G2_MADD_WIDTHS:
+        g2["g2_madd"].setdefault("widths", []).append(_g2_width(card, "madd", lanes, 1, rng, dev))
+    rows.append(_fp_inv_row(card, rng, dev))
     return rows
 
 
 def _g2_width(card: Card, op: str, lanes: int, k: int, rng, dev) -> dict:
-    """g2_add (k = 1) or g2_double (2^k P) at `lanes` lanes: the entry point,
-    every team size and the one-thread kernel, each bit-exact against the
-    plain version, and timed beside the bound."""
+    """g2_add, g2_madd (k = 1) or g2_double (2^k P) at `lanes` lanes: the
+    entry point, every team size and the one-thread kernel, each bit-exact
+    against the plain version, edge lanes included, and timed beside the
+    bound."""
     from spartan_tpu_torch.ops import curve as cv
 
     p, q, _ph, _qh = _random_points("g2", lanes, rng, dev)
-    qj = _jacobian(q, rng)
-    if op == "add":
-        ins, want = (p.data, qj.data), cv.add_plain(p, qj).data
-        got = cv.add(p, qj).data
-        products, nbytes = _add_products("add", p, qj), LANE_BYTES["g2_add"] * lanes
-        plain_fn = lambda: cv.add_plain(p, qj)  # noqa: E731
-    else:
+    if op == "double":
         ins, want = (p.data,), cv.double_plain(p, k).data
         got = cv.double(p, k).data
         products, nbytes = PRODUCTS["g2_double"] * lanes * k, LANE_BYTES["g2_double"] * lanes
         plain_fn = lambda: cv.double_plain(p, k)  # noqa: E731
+    else:  # the mixed add takes Q affine-encoded, the add with its own Z
+        wrap, plain = (cv.add_mixed, cv.add_mixed_plain) if op == "madd" else (cv.add, cv.add_plain)
+        q2 = q if op == "madd" else _jacobian(q, rng)
+        ins, want = (p.data, q2.data), plain(p, q2).data
+        got = wrap(p, q2).data
+        products, nbytes = _add_products(op, p, q2), LANE_BYTES[f"g2_{op}"] * lanes
+        plain_fn = lambda: plain(p, q2)  # noqa: E731
     label = f"g2_{op} lanes={lanes} k={k}"
     check(torch.equal(got, want), f"{label}: kernel disagrees with its plain version")
     out = torch.empty_like(p.data)
-    entry = "g2_add" if op == "add" else "g2_double"
-    row = {"lanes": lanes, "k": k,
-           "ms": cuda_ms(direct(entry, out, *ins, args=() if op == "add" else (k,)), 20)}
+    int_args = (k,) if op == "double" else ()
+    row = {"lanes": lanes, "k": k, "ms": cuda_ms(direct(f"g2_{op}", out, *ins, args=int_args), 20)}
     for team in TEAMS:
-        call = direct(f"g2_{op}_team", out, *ins, args=(team,) if op == "add" else (k, team))
+        call = direct(f"g2_{op}_team", out, *ins, args=int_args + (team,))
         out.zero_()
         call()
         check(torch.equal(out, want), f"{label} team {team}: disagrees with the plain version")
         row[f"team{team}_ms"] = cuda_ms(call, 20)
     one = direct(f"g2_{op}_onethread", out, *ins)
-    if op == "add":
+    if op != "double":
         one()
         check(torch.equal(out, want), f"{label} one-thread kernel: disagrees with the plain version")
         row["onethread_ms"] = cuda_ms(one, 20)
@@ -378,12 +398,58 @@ def _g2_width(card: Card, op: str, lanes: int, k: int, rng, dev) -> dict:
         check(torch.equal(tmp if k % 2 else out, want),
               f"{label} one-thread kernel: disagrees with the plain version")
         row["onethread_ms"] = cuda_ms(lambda: [c() for c in chain], 20)
-    row["plain_ms"] = cuda_ms(plain_fn, 2 if lanes > 1024 else 5)
+    row["plain_ms"] = cuda_ms(plain_fn, 1 if lanes > 1 << 17 else 2 if lanes > 1024 else 5)
     row["bound_ms"], row["bound_by"] = card.bound(products, nbytes)
     print(f"{label} bit-exact (entry, teams, one-thread): entry {row['ms']:.4f} ms  "
           + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in TEAMS)
           + f"  one-thread {row['onethread_ms']:.4f}  plain {row['plain_ms']:.3f}  "
           f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
+def _fp_inv_row(card: Card, rng, dev) -> dict:
+    """fp_inv (one warp a lane) at FP_INV_LANES lanes beside its one-thread
+    version and the chain of fp_mul launches it replaced (pow_const over the
+    kernel wrapper, host time included), each bit-exact against the plain
+    chain, whose first 16 lanes are held against Python integers. The row's
+    own numbers are those at 1 lane, the prover's."""
+    from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops.field import FP
+
+    m = FP.modulus
+    pool = _random_field(FP, max(FP_INV_LANES) + 3, rng, dev)  # lanes 0-2: 0, 1, m - 1
+    row, widths = None, []
+    for lanes in FP_INV_LANES:
+        a = pool[:, :lanes].contiguous() if lanes > 1 else pool[:, 3:4].contiguous()
+        want = fo.fermat_inv_plain(FP, a)
+        check(fo.decode_mont(FP, want[:, :16]) == [pow(x, m - 2, m) for x in fo.decode_mont(FP, a[:, :16])],
+              f"fp_inv lanes={lanes}: the plain chain disagrees with Python integers")
+        got = fo.fermat_inv(FP, a)
+        check(torch.equal(got, want), f"fp_inv lanes={lanes}: kernel disagrees with its plain version")
+        check(torch.equal(fo.pow_const(FP, a, m - 2), want),
+              f"fp_inv lanes={lanes}: the fp_mul chain disagrees with the plain version")
+        out = torch.empty_like(a)
+        w = {"lanes": lanes, "ms": cuda_ms(direct("fp_inv", out, a), 20)}
+        call = direct("fp_inv_thread", out, a)
+        out.zero_()
+        call()
+        check(torch.equal(out, want), f"fp_inv_thread lanes={lanes}: disagrees with the plain version")
+        w["thread_ms"] = cuda_ms(call, 20)
+        w["fp_mul_chain_ms"] = cuda_ms(lambda: fo.pow_const(FP, a, m - 2), 3)
+        w["plain_ms"] = cuda_ms(lambda: fo.fermat_inv_plain(FP, a), 1)
+        w["bound_ms"], w["bound_by"] = card.bound(PRODUCTS["fp_inv"] * lanes, LANE_BYTES["fp_inv"] * lanes)
+        print(f"fp_inv lanes={lanes} bit-exact (entry, one-thread, fp_mul chain): entry {w['ms']:.4f} ms  "
+              f"one-thread {w['thread_ms']:.4f}  fp_mul chain "
+              f"{w['fp_mul_chain_ms']:.4f} (609 launches, host included)  plain {w['plain_ms']:.1f}  "
+              f"bound {w['bound_ms']:.2e} ms ({w['bound_by']})", flush=True)
+        widths.append(w)
+        if row is None:
+            _n_in, src, rep = kernels.KERNELS["fp_inv"]
+            row = {"name": "fp_inv", "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}",
+                   "replaces": rep, "max_abs_err": 0, "ms": w["ms"], "plain_ms": w["plain_ms"],
+                   "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": None}
+    row["widths"] = widths
     return row
 
 
@@ -407,8 +473,11 @@ def phase_golden(dev) -> None:
     from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
 
     a, b, c, v, w = _circuit(5, 2, 1, 3)
-    pp, vp = MLArgumentForR1CS.setup(5, SeededFr(7), dev)
-    pk = MLArgumentForR1CS.index(a, b, c, dev)
+    # no device named: setup and index default to the card
+    pp, vp = MLArgumentForR1CS.setup(5, SeededFr(7))
+    pk = MLArgumentForR1CS.index(a, b, c)
+    check(pp.device == dev and pk.matrix_a.coo[2].device == dev,
+          f"setup/index without a device built on {pp.device}, not on {dev}")
     proof = MLArgumentForR1CS.prove(pk, v, w, pp)
     with open(GOLDEN, "rb") as fh:
         want = fh.read()
@@ -544,10 +613,34 @@ def phase_profile(prove, warm: int = 5) -> None:
     busy_s = busy / 1e6
     print(f"profile: prove under the profiler {wall:.4f} s, card busy {busy_s:.4f} s "
           f"({100 * busy_s / wall:.1f} %), idle {100 * (1 - busy_s / wall):.1f} %", flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:24]
     for name, (tot, cnt) in top:
         print(f"profile: {tot / 1e3:9.3f} ms {cnt:6d} x  {100 * tot / busy:5.1f} %  {name[:90]}",
               flush=True)
+    entries = {}
+    for name, (tot, cnt) in by_name.items():
+        entry = _entry_point(name)
+        if entry is not None:
+            ms, n = entries.get(entry, (0.0, 0))
+            entries[entry] = (ms + tot / 1e3, n + cnt)
+    print("profile: device time by entry point [ms, launches] " + json.dumps(entries), flush=True)
+
+
+def _entry_point(kernel: str):
+    """The entry point of csrc/ that launches the device kernel named
+    ``kernel`` (as the profiler names it), or None for PyTorch's own."""
+    m = re.search(r"team_kernel<\d+, (\d)>", kernel)
+    if m:
+        return ("g2_double", "g2_add", "g2_madd")[int(m.group(1))]
+    if re.search(r"inv_(warp|thread)_kernel", kernel):
+        return "fp_inv"
+    m = re.search(r"pt_kernel<(Fe<FpParams>|Fp2), (\d)>", kernel)
+    if m:
+        return ("g1_" if m.group(1).startswith("Fe") else "g2_") + ("madd", "add", "double")[int(m.group(2))]
+    m = re.search(r"fe_binary_kernel<(Fr|Fp)Params, (\d)>", kernel)
+    if m:
+        return m.group(1).lower() + "_" + ("mul", "add", "sub")[int(m.group(2))]
+    return None
 
 
 def main() -> int:

@@ -7,8 +7,10 @@ Each round runs A, B, B, A, every run in a process of its own that imports
 once, into its own ``spartan_tpu_torch/build``). A run takes the circuit
 of chip_smoke.py's phase 4 (log_n = 16, density 0, circuit seed 0, key
 seed 42) from this script's checkout, sets up and indexes on the card, then
-proves once cold and five times warm. It prints one JSON line per run and, at the end, the
-median warm prove and "open G2 MSMs" span of each side.
+proves once cold and five times warm, and times the decode to affine of one
+G1 point (the commitment's) and of 16 G2 points (an opening's at 2^16), host
+included: each decode inverts once. It prints one JSON line per run and, at
+the end, the medians of each side.
 """
 
 from __future__ import annotations
@@ -58,8 +60,22 @@ def child(root: str) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         spans.append(timers.SPANS.get("open G2 MSMs", float("nan")))
+    from spartan_tpu_torch.ops import curve as cv
+
+    def wall_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    g1, g2 = pp.powers_of_g[0].take(slice(0, 1)), pp.powers_of_h[0].take(slice(0, 16))
     print(json.dumps({"root": root, "cold_s": walls[0], "warm_s": walls[1:],
-                      "open_g2_msms_s": spans[1:]}), flush=True)
+                      "open_g2_msms_s": spans[1:],
+                      "g1_decode_1_ms": wall_ms(lambda: cv.g1_decode(g1)),
+                      "g2_decode_16_ms": wall_ms(lambda: cv.g2_decode(g2))}), flush=True)
 
 
 def main() -> int:
@@ -81,9 +97,12 @@ def main() -> int:
     for side in "AB":
         warm = [x for r in runs[side] for x in r["warm_s"]]
         g2 = [x for r in runs[side] for x in r["open_g2_msms_s"]]
+        dec = {k: statistics.median(r[k] for r in runs[side])
+               for k in ("g1_decode_1_ms", "g2_decode_16_ms")}
         print(f"{side} {roots[side]}: warm prove median {statistics.median(warm):.4f} s "
               f"(min {min(warm):.4f}, max {max(warm):.4f}, {len(warm)} proves); open G2 MSMs "
-              f"median {statistics.median(g2):.4f} s; cold "
+              f"median {statistics.median(g2):.4f} s; decode ms, median of runs: G1 x1 "
+              f"{dec['g1_decode_1_ms']:.3f}, G2 x16 {dec['g2_decode_16_ms']:.3f}; cold "
               + ", ".join(f"{r['cold_s']:.3f}" for r in runs[side]), flush=True)
     return 0
 

@@ -20,6 +20,7 @@ from typing import List, Tuple
 
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.commitment.data_structures import (
     Commitment, OpenProof, PublicParameter, VerifierParameter,
 )
@@ -49,9 +50,11 @@ def _combine_pairs_g2(pb: PointBatch) -> PointBatch:
     return cv.add(pb.take(slice(0, None, 2)), pb.take(slice(1, None, 2)))
 
 
-def keygen(nv: int, rng, device="cpu") -> Tuple[PublicParameter, VerifierParameter, List[int]]:
-    """Trusted setup on ``device``; ``rng`` provides ``sample_fr()``.
-    Returns (pp, vp, t), the trapdoor t included as the reference does."""
+def keygen(nv: int, rng, device="cuda") -> Tuple[PublicParameter, VerifierParameter, List[int]]:
+    """Trusted setup on ``device`` (the card unless the caller names another);
+    ``rng`` provides ``sample_fr()``. Returns (pp, vp, t), the trapdoor t
+    included as the reference does."""
+    device = kernels.require_device(device)
     if nv <= 0:
         raise invalid_arg("nv must be positive")
     g = hc.G1.mul(hf.G1_GEN, rng.sample_fr())

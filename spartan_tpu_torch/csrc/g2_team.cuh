@@ -1,16 +1,18 @@
-// K4 team kernels: G2 Jacobian add and 2^k-fold double, one team of T
-// threads per point. They replace spartan_tpu/ops/pallas_curve.py g2_add
-// (:399, _g2_add_kernel :264) and g2_double (:421, _g2_double_kernel :279;
-// the port's double repeats it k times in one launch, as the JAX MSM's
-// fori_loop over the window's doublings does, spartan_tpu/ops/msm.py:618).
+// K4 team kernels: G2 Jacobian add, mixed add and 2^k-fold double, one
+// team of T threads per point. They replace spartan_tpu/ops/pallas_curve.py
+// g2_add (:399, _g2_add_kernel :264), g2_madd (:410, _g2_madd_kernel :240)
+// and g2_double (:421, _g2_double_kernel :279; the port's double repeats it
+// k times in one launch, as the JAX MSM's fori_loop over the window's
+// doublings does, spartan_tpu/ops/msm.py:618).
 //
 // What bounds them on an H100. At the width of the openings' Horner steps
 // (7-9 points) the card is idle but for one chain of dependent Fp
 // products: 16 for a double and 44 for an add when one thread computes the
 // point (point.cuh), each a 288-product CIOS chain. At 28,672 and 65,536
-// points they are bound by 32-bit multiply issue (2 IMADs per 32x32->64
-// product, 64 IMADs per SM per clock): a double is 4,608 products a point
-// and an add 12,672.
+// points, and at the mixed add's 1 M points (the first bucket level of the
+// openings' MSMs), they are bound by 32-bit multiply issue (2 IMADs per
+// 32x32->64 product, 64 IMADs per SM per clock): a double is 4,608
+// products a point, a mixed add 8,640 and an add 12,672.
 //
 // What the design does about it. The formulas are written as stages of
 // independent Fp operations (ops/g2_team.py, tables in g2_team_prog.cuh):
@@ -18,19 +20,19 @@
 // and the formula's independent Fp2 operations. A team's threads share out
 // each stage's operations and meet at a __syncwarp(team mask); values live
 // in the team's slice of shared memory, 12 limbs a slot. The chain of
-// dependent products is then 3 deep for a double and 5 for an add. Each
-// thread computes whole Fp products in its registers (no spills, a few
+// dependent products is then 3 deep for a double and 5 for either add.
+// Each thread computes whole Fp products in its registers (no spills, a few
 // dozen registers), so at wide widths far more warps fit on an SM than the
-// one-thread kernel's 255 registers allowed. The Fp arithmetic runs its
-// carries on the PTX carry flag. The block loads and stores the points with
-// neighbouring threads on neighbouring lanes.
+// one-thread kernels' 255 registers allowed. The Fp arithmetic runs its
+// carries on the PTX carry flag (fp_cc.cuh). The block loads and stores the
+// points with neighbouring threads on neighbouring lanes.
 //
 // Edge lanes, in the order of point.cuh: P = inf -> Q; Q = inf -> P;
 // H = R = 0 (P == Q) -> double(P); P == -Q gives Z = 0 by the formula. So
 // the kernels return the same Jacobian limbs as the plain PyTorch versions.
 #pragma once
 
-#include "fp.cuh"
+#include "fp_cc.cuh"
 
 // One operation of a stage program, 16 bytes. mul: d = t0 * t1 (Montgomery);
 // otherwise d = scale * (sum of nterm terms). A term is a slot, bit 7 set
@@ -69,140 +71,6 @@ __device__ __forceinline__ void sh_store(uint4* sh, uint32_t slot, const Fp& a) 
 
 __device__ __forceinline__ bool sh_is_zero(const uint4* sh, uint32_t slot) {
   return fe_is_zero<FpParams>(sh_load(sh, slot));
-}
-
-// The Fp arithmetic of the team kernels: field.cuh's CIOS product and its
-// canonical add and subtract, with the carries on the PTX carry flag
-// (add.cc, mad.lo.cc, madc.hi.cc): one instruction a limb where field.cuh's
-// 64-bit sums take two dependent ones. Same results; faster at every width
-// measured (PERF.md). The host branch below runs the same code on a
-// software carry flag, for the host pass of nvcc and for g++.
-#if defined(__CUDA_ARCH__)
-#define SPK_CC(op, ...) asm volatile(op : __VA_ARGS__)
-__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("add.cc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("addc.cc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("addc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("sub.cc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("subc.cc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r; SPK_CC("subc.u32 %0, %1, %2;", "=r"(r) : "r"(a), "r"(b)); return r;
-}
-__device__ __forceinline__ uint32_t madlo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r; SPK_CC("mad.lo.cc.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
-}
-__device__ __forceinline__ uint32_t madclo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r; SPK_CC("madc.lo.cc.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
-}
-__device__ __forceinline__ uint32_t madhi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r; SPK_CC("mad.hi.cc.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
-}
-__device__ __forceinline__ uint32_t madchi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r; SPK_CC("madc.hi.cc.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
-}
-#undef SPK_CC
-#else  // the carry flag on the host, where the device code is compiled for tests
-inline thread_local uint32_t spk_cf;
-inline uint32_t cc_set(uint64_t s) { spk_cf = (uint32_t)(s >> 32) & 1u; return (uint32_t)s; }
-inline uint32_t add_cc(uint32_t a, uint32_t b) { return cc_set((uint64_t)a + b); }
-inline uint32_t addc_cc(uint32_t a, uint32_t b) { return cc_set((uint64_t)a + b + spk_cf); }
-inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + spk_cf; }
-inline uint32_t sub_cc(uint32_t a, uint32_t b) { return cc_set((uint64_t)a - b); }
-inline uint32_t subc_cc(uint32_t a, uint32_t b) { return cc_set((uint64_t)a - b - spk_cf); }
-inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - spk_cf; }
-inline uint32_t madlo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return cc_set((uint64_t)(uint32_t)((uint64_t)a * b) + c);
-}
-inline uint32_t madclo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return cc_set((uint64_t)(uint32_t)((uint64_t)a * b) + c + spk_cf);
-}
-inline uint32_t madhi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return cc_set((((uint64_t)a * b) >> 32) + c);
-}
-inline uint32_t madchi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return cc_set((((uint64_t)a * b) >> 32) + c + spk_cf);
-}
-#endif
-
-// (a + b) mod p and (a - b) mod p on the carry flag, canonical in and out.
-__device__ __forceinline__ Fp fp_add_cc(const Fp& a, const Fp& b) {
-  constexpr int N = FpParams::N;
-  Fp s, d;
-  s.v[0] = add_cc(a.v[0], b.v[0]);
-#pragma unroll
-  for (int i = 1; i < N; ++i) s.v[i] = addc_cc(a.v[i], b.v[i]);
-  const uint32_t carry = addc(0u, 0u);
-  d.v[0] = sub_cc(s.v[0], FpParams::mod(0));
-#pragma unroll
-  for (int i = 1; i < N; ++i) d.v[i] = subc_cc(s.v[i], FpParams::mod(i));
-  const uint32_t borrow = subc(carry, 0u);  // 0xffffffff when s < p
-  return borrow ? s : d;
-}
-
-__device__ __forceinline__ Fp fp_sub_cc(const Fp& a, const Fp& b) {
-  constexpr int N = FpParams::N;
-  Fp d, e;
-  d.v[0] = sub_cc(a.v[0], b.v[0]);
-#pragma unroll
-  for (int i = 1; i < N; ++i) d.v[i] = subc_cc(a.v[i], b.v[i]);
-  const uint32_t borrow = subc(0u, 0u);  // 0xffffffff when a < b
-  e.v[0] = add_cc(d.v[0], FpParams::mod(0));
-#pragma unroll
-  for (int i = 1; i < N; ++i) e.v[i] = addc_cc(d.v[i], FpParams::mod(i));
-  return borrow ? e : d;
-}
-
-// a * b * 2^-384 mod p: CIOS as in field.cuh, each row's low and high
-// halves added along the carry flag.
-__device__ __forceinline__ Fp fp_mul_cc(const Fp& a, const Fp& b) {
-  constexpr int N = FpParams::N;
-  uint32_t t[N + 2];
-#pragma unroll
-  for (int i = 0; i < N + 2; ++i) t[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t bi = b.v[i];
-    t[0] = madlo_cc(a.v[0], bi, t[0]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = madclo_cc(a.v[j], bi, t[j]);
-    t[N] = addc_cc(t[N], 0u);
-    t[N + 1] = addc(t[N + 1], 0u);
-    t[1] = madhi_cc(a.v[0], bi, t[1]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = madchi_cc(a.v[j], bi, t[j + 1]);
-    t[N + 1] = addc(t[N + 1], 0u);
-
-    const uint32_t m = t[0] * FpParams::INV;
-    t[0] = madlo_cc(m, FpParams::mod(0), t[0]);  // 0, and a carry
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = madclo_cc(m, FpParams::mod(j), t[j]);
-    t[N] = addc_cc(t[N], 0u);
-    t[N + 1] = addc(t[N + 1], 0u);
-    t[1] = madhi_cc(m, FpParams::mod(0), t[1]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = madchi_cc(m, FpParams::mod(j), t[j + 1]);
-    t[N + 1] = addc(t[N + 1], 0u);
-#pragma unroll
-    for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];  // divide by 2^32
-    t[N + 1] = 0u;
-  }
-  Fp r, d;  // t < 2p: subtract p once if t >= p
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.v[k] = t[k];
-  d.v[0] = sub_cc(t[0], FpParams::mod(0));
-#pragma unroll
-  for (int k = 1; k < N; ++k) d.v[k] = subc_cc(t[k], FpParams::mod(k));
-  const uint32_t borrow = subc(t[N], 0u);  // 0xffffffff when t < p
-  return borrow ? r : d;
 }
 
 __device__ __forceinline__ void run_op(uint4* sh, const TeamOp* ops, int j) {
@@ -248,15 +116,42 @@ __device__ __forceinline__ void run_stages(uint4* sh, const TeamOp* ops, const u
   }
 }
 
-// ADD: out = p + q; otherwise out = 2^k p. Points are (6, 12, n) limb-major.
-template <int T, bool ADD>
+// The kernels' operations. The adds load P and Q, the double P alone.
+enum Op { kDouble = 0, kAdd = 1, kMadd = 2 };
+
+template <int OP>
+struct Prog;  // the stage program an operation runs, and its team slice
+template <>
+struct Prog<kDouble> {
+  static constexpr int kSlots = G2T_DBL_SLOTS;
+};
+template <>
+struct Prog<kAdd> {
+  static constexpr int kSlots = G2T_ADD_SLOTS;
+  static __device__ __forceinline__ const TeamOp* ops() { return G2T_ADD_OPS; }
+  static __device__ __forceinline__ const uint8_t* ends() { return G2T_ADD_END; }
+  static __device__ __forceinline__ const uint8_t* check() { return G2T_ADD_CHECK; }
+  static constexpr int kStages = G2T_ADD_NSTAGE;
+};
+template <>
+struct Prog<kMadd> {
+  static constexpr int kSlots = G2T_MADD_SLOTS;
+  static __device__ __forceinline__ const TeamOp* ops() { return G2T_MADD_OPS; }
+  static __device__ __forceinline__ const uint8_t* ends() { return G2T_MADD_END; }
+  static __device__ __forceinline__ const uint8_t* check() { return G2T_MADD_CHECK; }
+  static constexpr int kStages = G2T_MADD_NSTAGE;
+};
+
+// OP = kAdd: out = p + q; kMadd: out = p + q with q affine-encoded;
+// kDouble: out = 2^k p. Points are (6, 12, n) limb-major.
+template <int T, int OP>
 __global__ void __launch_bounds__(kBlock) team_kernel(const uint32_t* __restrict__ p,
                                                       const uint32_t* __restrict__ q,
                                                       uint32_t* __restrict__ out, int64_t n,
                                                       int k) {
   constexpr int PTS = kBlock / T;  // points per block
-  constexpr int STRIDE = 3 * (ADD ? G2T_ADD_SLOTS : G2T_DBL_SLOTS) + 1;  // uint4 per team
-  constexpr int NIN = ADD ? 12 : 6;  // Fp coordinates loaded per point
+  constexpr int STRIDE = 3 * Prog<OP>::kSlots + 1;  // uint4 per team
+  constexpr int NIN = OP == kDouble ? 6 : 12;  // Fp coordinates loaded per point
   extern __shared__ uint4 smem[];  // PTS team slices, then out_slot
   int* out_slot = reinterpret_cast<int*>(smem + PTS * STRIDE);  // result's first slot
   const int team = threadIdx.x / T, rank = threadIdx.x % T;
@@ -277,25 +172,25 @@ __global__ void __launch_bounds__(kBlock) team_kernel(const uint32_t* __restrict
     uint4* sh = smem + team * STRIDE;
     const unsigned mask = (T == 32 ? 0xffffffffu : ((1u << T) - 1u) << (threadIdx.x % 32 / T * T));
     int res = 0;
-    if constexpr (ADD) {
+    if constexpr (OP == kDouble) {
+      for (int r = 0; r < k; ++r)
+        run_stages<T>(sh, G2T_DBL_OPS, G2T_DBL_END, 0, G2T_DBL_NSTAGE, rank, mask);
+    } else {
+      using G = Prog<OP>;
       const bool p_inf = sh_is_zero(sh, 4) && sh_is_zero(sh, 5);
       const bool q_inf = sh_is_zero(sh, 10) && sh_is_zero(sh, 11);
       if (p_inf) {
         res = 6;
       } else if (!q_inf) {
-        run_stages<T>(sh, G2T_ADD_OPS, G2T_ADD_END, 0, G2T_ADD_CHECK_STAGE + 1, rank, mask);
+        run_stages<T>(sh, G::ops(), G::ends(), 0, G2T_ADD_CHECK_STAGE + 1, rank, mask);
         bool same = true;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) same = same && sh_is_zero(sh, G2T_ADD_CHECK[c]);
+        for (int c = 0; c < 4; ++c) same = same && sh_is_zero(sh, G::check()[c]);
         if (same)
           run_stages<T>(sh, G2T_DBL_OPS, G2T_DBL_END, 0, G2T_DBL_NSTAGE, rank, mask);
         else
-          run_stages<T>(sh, G2T_ADD_OPS, G2T_ADD_END, G2T_ADD_CHECK_STAGE + 1, G2T_ADD_NSTAGE,
-                        rank, mask);
+          run_stages<T>(sh, G::ops(), G::ends(), G2T_ADD_CHECK_STAGE + 1, G::kStages, rank, mask);
       }
-    } else {
-      for (int r = 0; r < k; ++r)
-        run_stages<T>(sh, G2T_DBL_OPS, G2T_DBL_END, 0, G2T_DBL_NSTAGE, rank, mask);
     }
     if (rank == 0) out_slot[team] = res;
   }
@@ -308,31 +203,31 @@ __global__ void __launch_bounds__(kBlock) team_kernel(const uint32_t* __restrict
 }
 
 #ifdef __CUDACC__
-template <int T, bool ADD>
+template <int T, int OP>
 static int launch_t(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n, int k,
                     cudaStream_t stream) {
   constexpr int PTS = kBlock / T;
-  constexpr size_t smem = ((size_t)PTS * (3 * (ADD ? G2T_ADD_SLOTS : G2T_DBL_SLOTS) + 1) + PTS) * 16;
+  constexpr size_t smem = ((size_t)PTS * (3 * Prog<OP>::kSlots + 1) + PTS) * 16;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        team_kernel<T, ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        team_kernel<T, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int64_t blocks = (n + PTS - 1) / PTS;
-  team_kernel<T, ADD><<<(unsigned)blocks, kBlock, smem, stream>>>(p, q, out, n, k);
+  team_kernel<T, OP><<<(unsigned)blocks, kBlock, smem, stream>>>(p, q, out, n, k);
   return (int)cudaGetLastError();
 }
 
 // Team size T in {4, 8, 16}; any other value is refused (cudaErrorInvalidValue).
-template <bool ADD>
+template <int OP>
 static int launch(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n, int k, int T,
                   cudaStream_t stream) {
   switch (T) {
-    case 4: return launch_t<4, ADD>(p, q, out, n, k, stream);
-    case 8: return launch_t<8, ADD>(p, q, out, n, k, stream);
-    case 16: return launch_t<16, ADD>(p, q, out, n, k, stream);
+    case 4: return launch_t<4, OP>(p, q, out, n, k, stream);
+    case 8: return launch_t<8, OP>(p, q, out, n, k, stream);
+    case 16: return launch_t<16, OP>(p, q, out, n, k, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

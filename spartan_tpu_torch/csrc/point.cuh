@@ -1,8 +1,9 @@
 // Short-Weierstrass (a = 0) Jacobian point formulas, written once over the
 // coordinate field F, one thread per point: Fp for the G1 kernels
-// (g1_ops.cu) and Fp2 for the G2 mixed add (g2_ops.cu). The G2 add and
-// double run the same formulas as team programs (g2_team.cuh), and
-// g2_ops.cu keeps this file's G2 add and double only as yardsticks.
+// (g1_ops.cu) and Fp2 for the one-thread G2 kernels (g2_ops.cu). The G2
+// add, mixed add and double run the same formulas as team programs
+// (g2_team.cuh), and g2_ops.cu keeps this file's G2 versions only as
+// yardsticks.
 // The formulas and the edge-lane rules are those of the JAX package's
 // spartan_tpu/ops/curve.py (double :149, add :171, add_mixed :216), so a
 // kernel and the plain PyTorch version return the same Jacobian limbs.
@@ -19,7 +20,7 @@
 // What bounds these kernels on an H100: integer multiply-add issue inside
 // the Fp multiply (field.cuh), and registers: one thread holds every live
 // temporary of the formula. The G1 kernels fit (112 to 250 registers); over
-// Fp2 the mixed add needs more than the 255 a thread may hold and ptxas
+// Fp2 the formulas need more than the 255 a thread may hold and ptxas
 // spills to local memory. 128 threads per block, so a block never runs out
 // of registers.
 #pragma once

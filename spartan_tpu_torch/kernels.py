@@ -18,7 +18,7 @@ each kernel by lane count and int arguments.
 
 ``YARDSTICKS`` are entry points that only ``chip_smoke.py`` calls, to time a
 kernel against other versions of it (the G2 team kernels at each team size,
-the one-thread G2 add and double); they count no launches.
+the one-thread G2 kernels and Fp inversion); they count no launches.
 """
 
 from __future__ import annotations
@@ -51,10 +51,11 @@ KERNELS = {
     "fp_mul": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:254"),
     "fp_add": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:258"),
     "fp_sub": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:262"),
+    "fp_inv": (1, "fp_ops.cu", "spartan_tpu/ops/field.py:299"),
     "g1_madd": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:385"),
     "g1_add": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:378"),
     "g1_double": (1, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:392"),
-    "g2_madd": (2, "g2_ops.cu", "spartan_tpu/ops/pallas_curve.py:410"),
+    "g2_madd": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:410"),
     "g2_add": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:399"),
     "g2_double": (1, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:421"),
 }
@@ -65,9 +66,12 @@ INT_ARGS = {"g2_double": 1}  # k: the launch returns 2^k P
 # yardstick -> (number of input arrays, number of int arguments)
 YARDSTICKS = {
     "g2_add_team": (2, 1),  # team size
+    "g2_madd_team": (2, 1),  # team size
     "g2_double_team": (1, 2),  # k, team size
     "g2_add_onethread": (2, 0),
+    "g2_madd_onethread": (2, 0),
     "g2_double_onethread": (1, 0),
+    "fp_inv_thread": (1, 0),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -81,6 +85,18 @@ class KernelBuildError(RuntimeError):
 
 class KernelLaunchError(RuntimeError):
     """A kernel entry point reported a CUDA error at launch."""
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. The entry points that build on a
+    device (setup, keygen, index) default to ``"cuda"``; a CUDA device on a
+    machine without one raises here, before any work, instead of carrying on
+    on the CPU. The CPU is taken only when the caller names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but torch.cuda.is_available() is "
+                           "False; pass device='cpu' to run on the CPU")
+    return dev
 
 
 _lib = None

@@ -10,7 +10,8 @@ R = 2^(32K): 2^256 for Fr and 2^384 for Fp, the same R as the JAX package's
 (``repack16``).
 
 ``add``, ``sub`` and ``mont_mul`` are the wrappers of the hand-written
-kernels K1 (Fr, ``csrc/fr_ops.cu``) and K2 (Fp, ``csrc/fp_ops.cu``). For a
+kernels K1 (Fr, ``csrc/fr_ops.cu``) and K2 (Fp, ``csrc/fp_ops.cu``), and
+``fermat_inv`` of K2's inversion (``csrc/fp_inv.cuh``). For a
 CPU tensor they run the plain PyTorch version beside them (``*_plain``);
 for a CUDA tensor they launch the kernel or raise. The plain versions split
 each limb into two 16-bit halves held in ``int64`` (torch.uint32 has no
@@ -32,8 +33,8 @@ from spartan_tpu_torch.host import field as hf
 __all__ = [
     "FieldSpec", "FR", "FP",
     "add", "sub", "neg", "mont_mul", "to_mont", "from_mont",
-    "pow_const", "inv", "batch_inv", "zeros", "ones_mont", "reduce_wide", "sum_mod",
-    "add_plain", "sub_plain", "mont_mul_plain",
+    "pow_const", "fermat_inv", "inv", "batch_inv", "zeros", "ones_mont", "reduce_wide",
+    "sum_mod", "add_plain", "sub_plain", "mont_mul_plain", "fermat_inv_plain",
     "encode_ints", "decode_ints", "encode_mont", "decode_mont", "repack16",
     "ints_to_limbs", "limbs_to_ints",
 ]
@@ -352,13 +353,36 @@ def pow_const(spec: FieldSpec, a: torch.Tensor, e: int, mul=None) -> torch.Tenso
     return result
 
 
+def fermat_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^(m-2) per lane, Montgomery form (inv(0) = 0): the square-and-multiply
+    chain over ``mont_mul_plain``."""
+    return pow_const(spec, a, spec.modulus - 2, lambda x, y: mont_mul_plain(spec, x, y))
+
+
+def fermat_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^(m-2) per lane, Montgomery form (inv(0) = 0). Fp on the card is one
+    launch of K2's ``fp_inv``, the whole chain; Fr on the card is the chain
+    over the ``fr_mul`` kernel. A CPU tensor takes the plain chain."""
+    if a.shape[0] != spec.nlimb:
+        raise ValueError(f"{spec.name}: expected {spec.nlimb} limbs, got {a.shape[0]}")
+    if a.device.type == "cpu":
+        return fermat_inv_plain(spec, a)
+    if spec is not FP:
+        return pow_const(spec, a, spec.modulus - 2)
+    a2 = a.reshape(spec.nlimb, -1).contiguous()
+    out = torch.empty_like(a2)
+    kernels.launch("fp_inv", out, a2)
+    return out.reshape(a.shape)
+
+
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Batched inverse of (K, ...) Montgomery elements; inv(0) = 0."""
-    return batch_inv(spec, a, lambda x, y: mont_mul(spec, x, y))
+    return batch_inv(spec, a, lambda x, y: mont_mul(spec, x, y), lambda x: fermat_inv(spec, x))
 
 
-def batch_inv(spec: FieldSpec, a: torch.Tensor, mul) -> torch.Tensor:
-    """``inv`` with the multiply ``mul`` (a kernel wrapper or a plain one).
+def batch_inv(spec: FieldSpec, a: torch.Tensor, mul, root_inv) -> torch.Tensor:
+    """``inv`` with the multiply ``mul`` and the inversion ``root_inv`` of
+    the tree's root (kernel wrappers or plain versions).
 
     Montgomery's trick over a product tree: multiply lanes pairwise up to
     one product, invert it by Fermat (a^(m-2)), and walk back down, two
@@ -376,7 +400,7 @@ def batch_inv(spec: FieldSpec, a: torch.Tensor, mul) -> torch.Tensor:
             level = torch.cat([level, one], dim=1)
         levels.append(level)
         level = mul(level[:, 0::2], level[:, 1::2])
-    result = pow_const(spec, level, spec.modulus - 2, mul)
+    result = root_inv(level)
     for lv in reversed(levels):
         # inv(even) = inv(parent) odd and inv(odd) = inv(parent) even
         pair = torch.stack([lv[:, 1::2], lv[:, 0::2]], dim=2)  # (K, P, 2)

@@ -9,7 +9,8 @@ per call.
 
 Each function takes the base-field operations ``f`` it runs on: ``KERNEL``
 (the wrappers of the Fp kernel K2, the default) or ``PLAIN`` (the plain
-PyTorch versions, used by the point kernels' plain versions).
+PyTorch versions, used by the point kernels' plain versions). ``inv`` is
+the Fermat inversion of one batch (``field.fermat_inv``).
 """
 
 from __future__ import annotations
@@ -27,10 +28,13 @@ class FpOps(NamedTuple):
     add: Callable
     sub: Callable
     mul: Callable
+    inv: Callable
 
 
-KERNEL = FpOps(partial(fo.add, FP), partial(fo.sub, FP), partial(fo.mont_mul, FP))
-PLAIN = FpOps(partial(fo.add_plain, FP), partial(fo.sub_plain, FP), partial(fo.mont_mul_plain, FP))
+KERNEL = FpOps(partial(fo.add, FP), partial(fo.sub, FP), partial(fo.mont_mul, FP),
+               partial(fo.fermat_inv, FP))
+PLAIN = FpOps(partial(fo.add_plain, FP), partial(fo.sub_plain, FP), partial(fo.mont_mul_plain, FP),
+              partial(fo.fermat_inv_plain, FP))
 
 
 def make(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
@@ -71,6 +75,6 @@ def inv2(a, f: FpOps = KERNEL):
     """Batched inverse conj(a) / (a0^2 + a1^2); inv2(0) = 0."""
     sq = f.mul(a, a)
     norm = f.add(sq[:, 0], sq[:, 1])
-    n_inv = fo.batch_inv(FP, norm, f.mul)
+    n_inv = fo.batch_inv(FP, norm, f.mul, f.inv)
     conj = make(a[:, 0], f.sub(torch.zeros_like(a[:, 1]), a[:, 1]))
     return f.mul(conj, n_inv[:, None])

@@ -1,19 +1,20 @@
-"""Stage programs of the team G2 kernels (K4 ``g2_add`` and ``g2_double``,
-``csrc/g2_team.cuh``), written at the level of Fp operations.
+"""Stage programs of the team G2 kernels (K4 ``g2_add``, ``g2_madd`` and
+``g2_double``, ``csrc/g2_team.cuh``), written at the level of Fp operations.
 
 A team of T threads computes one G2 point. The formulas of ``ops/curve.py``
-(dbl-2009-l, add-2007-bl with a = 0) are written here as stages: every
-operation of a stage reads only values that earlier stages wrote, so the
-team's threads share out a stage's operations and meet at one
+(dbl-2009-l, add-2007-bl, madd-2007-bl with a = 0) are written here as
+stages: every operation of a stage reads only values that earlier stages
+wrote, so the team's threads share out a stage's operations and meet at one
 ``__syncwarp`` after it. Karatsuba gives three independent Fp products per
 Fp2 multiply and the complex square two, so the chain of dependent Fp
-products is 3 deep for a double (16 products) and 5 deep for an add (44).
+products is 3 deep for a double (16 products) and 5 deep for an add (44)
+and a mixed add (30).
 
 An operation is a Montgomery product ``d = a * b`` or a linear combination
 ``d = s * (sum of +-terms)``, a term repeated to give it a coefficient and
 ``s`` a small integer scale. Every value lives in a slot of the team's
 shared memory, 12 limbs each. The inputs are P in slots 0-5 (x.c0, x.c1,
-y.c0, y.c1, z.c0, z.c1) and, for the add, Q in slots 6-11; the result
+y.c0, y.c1, z.c0, z.c1) and, for the adds, Q in slots 6-11; the result
 overwrites P's slots. ``allocate`` gives every other value the lowest slot
 free over its lifetime and checks that no stage reads a slot that it also
 writes, which makes the order of a stage's operations free.
@@ -94,8 +95,39 @@ ADD = [
      "f0 = S10 * H30", "f1 = S11 * H31", "f2 = S1s * H3s"],
     ["PY0 = e0 - e1 - f0 + f1", "PY1 = e2 - e0 - e1 - f2 + f0 + f1"],
 ]
-ADD_CHECK_STAGE = 4  # after this stage the kernel tests H = R = 0 (P == Q)
+ADD_CHECK_STAGE = 4  # after this stage the add kernels test H = R = 0 (P == Q)
 ADD_CHECK = ["H0", "H1", "R0", "R1"]
+
+# madd-2007-bl as in curve.add_mixed_plain, Q affine (Z2 = 1): Z1Z1 = Z1^2,
+# U2 = X2 Z1Z1, S2 = Y2 Z1 Z1Z1, H = U2 - X1, R = S2 - Y1,
+# X3 = R^2 - H^3 - 2 X1 H^2, Y3 = R (X1 H^2 - X3) - Y1 H^3, Z3 = Z1 H.
+# 30 Fp products in 5 dependent stages; Q's Z slots are read only by the
+# kernel's Q = inf test.
+MADD = [
+    ["z1s = PZ0 + PZ1", "z1d = PZ0 - PZ1", "y2s = QY0 + QY1", "x2s = QX0 + QX1",
+     "x1s = PX0 + PX1", "y1s = PY0 + PY1"],
+    ["p0 = z1s * z1d", "pm = PZ0 * PZ1", "b0 = QY0 * PZ0", "b1 = QY1 * PZ1", "b2 = y2s * z1s"],
+    ["zz1 = 2*pm", "zz1s = p0 + 2*pm", "t20 = b0 - b1", "t21 = b2 - b0 - b1", "t2s = b2 - 2*b1"],
+    ["v0 = QX0 * p0", "v1 = QX1 * zz1", "v2 = x2s * zz1s",
+     "w0 = t20 * p0", "w1 = t21 * zz1", "w2 = t2s * zz1s"],
+    ["H0 = v0 - v1 - PX0", "H1 = v2 - v0 - v1 - PX1",
+     "Hs = v2 - 2*v1 - PX0 - PX1", "Hd = 2*v0 - v2 - PX0 + PX1",
+     "R0 = w0 - w1 - PY0", "R1 = w2 - w0 - w1 - PY1",
+     "Rs = w2 - 2*w1 - PY0 - PY1", "Rd = 2*w0 - w2 - PY0 + PY1"],
+    ["h0 = Hs * Hd", "hm = H0 * H1", "r0 = Rs * Rd", "rm = R0 * R1",
+     "z0 = PZ0 * H0", "z1 = PZ1 * H1", "z2 = z1s * Hs"],
+    ["H21 = 2*hm", "H2s = h0 + 2*hm", "PZ0 = z0 - z1", "PZ1 = z2 - z0 - z1"],
+    ["c0 = H0 * h0", "c1 = H1 * H21", "c2 = Hs * H2s",
+     "d0 = PX0 * h0", "d1 = PX1 * H21", "d2 = x1s * H2s"],
+    ["H30 = c0 - c1", "H31 = c2 - c0 - c1", "H3s = c2 - 2*c1",
+     "UH0 = d0 - d1", "UH1 = d2 - d0 - d1", "R21 = 2*rm"],
+    ["PX0 = r0 - H30 - 2*UH0", "PX1 = R21 - H31 - 2*UH1",
+     "W0 = 3*UH0 - r0 + H30", "W1 = 3*UH1 - R21 + H31",
+     "Ws = 3*UH0 + 3*UH1 - r0 - R21 + H30 + H31"],
+    ["e0 = R0 * W0", "e1 = R1 * W1", "e2 = Rs * Ws",
+     "f0 = PY0 * H30", "f1 = PY1 * H31", "f2 = y1s * H3s"],
+    ["PY0 = e0 - e1 - f0 + f1", "PY1 = e2 - e0 - e1 - f2 + f0 + f1"],
+]
 
 
 @dataclass
@@ -169,9 +201,11 @@ def allocate(stages_src, inputs: List[str]) -> Program:
     return prog
 
 
-PROGRAMS = {"DBL": allocate(DOUBLE, P_SLOTS), "ADD": allocate(ADD, P_SLOTS + Q_SLOTS)}
-# P == Q falls to the double on P's slots, so the add keeps them until then
-assert all(op.dst not in P_SLOTS for st in ADD[: ADD_CHECK_STAGE + 1] for op in map(parse, st))
+PROGRAMS = {"DBL": allocate(DOUBLE, P_SLOTS), "ADD": allocate(ADD, P_SLOTS + Q_SLOTS),
+            "MADD": allocate(MADD, P_SLOTS + Q_SLOTS)}
+# P == Q falls to the double on P's slots, so the adds keep them until then
+assert all(op.dst not in P_SLOTS for src in (ADD, MADD)
+           for st in src[: ADD_CHECK_STAGE + 1] for op in map(parse, st))
 
 
 def run(prog: Program, slots: List[int], p: int, stages=None) -> List[int]:
@@ -198,14 +232,15 @@ def team_double(coords: List[int], k: int, p: int) -> List[int]:
     return slots[:6]
 
 
-def team_add(pc: List[int], qc: List[int], p: int) -> List[int]:
-    """P + Q as the add kernel computes it, edge rules in the kernel's order:
-    P = inf -> Q; Q = inf -> P; H = R = 0 -> double(P)."""
+def team_add(pc: List[int], qc: List[int], p: int, name: str = "ADD") -> List[int]:
+    """P + Q as the add (``name`` "ADD") or mixed add ("MADD", Q affine)
+    kernel computes it, edge rules in the kernel's order: P = inf -> Q;
+    Q = inf -> P; H = R = 0 -> double(P)."""
     if pc[4] == pc[5] == 0:
         return list(qc)
     if qc[4] == qc[5] == 0:
         return list(pc)
-    prog = PROGRAMS["ADD"]
+    prog = PROGRAMS[name]
     slots = list(pc) + list(qc) + [0] * (prog.nslots - 12)
     run(prog, slots, p, slice(0, ADD_CHECK_STAGE + 1))
     if all(slots[prog.slot[n]] == 0 for n in ADD_CHECK):
@@ -232,7 +267,7 @@ def _records(prog: Program) -> List[str]:
 
 
 def emit_header() -> str:
-    dbl, add = PROGRAMS["DBL"], PROGRAMS["ADD"]
+    dbl, add, madd = PROGRAMS["DBL"], PROGRAMS["ADD"], PROGRAMS["MADD"]
     lines = [
         "// Generated by spartan_tpu_torch/ops/g2_team.py (python -m spartan_tpu_torch.ops.g2_team);",
         "// do not edit. The stage programs of the team G2 kernels (g2_team.cuh).",
@@ -240,8 +275,9 @@ def emit_header() -> str:
         "",
         f"#define G2T_DBL_SLOTS {dbl.nslots}",
         f"#define G2T_ADD_SLOTS {max(dbl.nslots, add.nslots)}  // the add may fall to the double",
+        f"#define G2T_MADD_SLOTS {max(dbl.nslots, madd.nslots)}",
     ]
-    for name, prog in (("DBL", dbl), ("ADD", add)):
+    for name, prog in PROGRAMS.items():
         ends, n = [], 0
         for st in prog.stages:
             n += len(st)
@@ -253,12 +289,11 @@ def emit_header() -> str:
             *_records(prog),
             "};",
         ]
-    lines += [
-        f"#define G2T_ADD_CHECK_STAGE {ADD_CHECK_STAGE}",
-        "static __constant__ uint8_t G2T_ADD_CHECK[4] = {"
-        + ", ".join(str(add.slot[n]) for n in ADD_CHECK) + "};",
-        "",
-    ]
+    lines.append(f"#define G2T_ADD_CHECK_STAGE {ADD_CHECK_STAGE}  // both adds")
+    for name, prog in (("ADD", add), ("MADD", madd)):
+        lines.append(f"static __constant__ uint8_t G2T_{name}_CHECK[4] = {{"
+                     + ", ".join(str(prog.slot[n]) for n in ADD_CHECK) + "};")
+    lines.append("")
     return "\n".join(lines)
 
 

@@ -5,8 +5,9 @@ Fiat-Shamir route (:125-177): the transcript absorbs the serialized A, B, C
 and the public input, then every prover message, and samples each verifier
 challenge from the same stream. The proof bytes equal the JAX package's.
 
-``setup`` and ``index`` take the device explicitly; ``prove`` runs on the
-device of ``pp``; ``verify`` runs on the host.
+``setup`` and ``index`` build on the card unless the caller names another
+device (the CPU tests pass ``"cpu"``); ``prove`` runs on the device of
+``pp``; ``verify`` runs on the host.
 """
 
 from __future__ import annotations
@@ -37,14 +38,14 @@ class MLArgumentForR1CS:
     """Non-interactive Spartan argument for R1CS over BLS12-381."""
 
     @staticmethod
-    def setup(nv: int, rng, device) -> Tuple[PublicParameter, VerifierParameter]:
+    def setup(nv: int, rng, device="cuda") -> Tuple[PublicParameter, VerifierParameter]:
         """Trusted setup on ``device``; the trapdoor is dropped. ``rng``
         provides ``sample_fr()``."""
         pp, vp, _t = keygen(nv, rng, device)
         return pp, vp
 
     @staticmethod
-    def index(matrix_a: Matrix, matrix_b: Matrix, matrix_c: Matrix, device) -> IndexPK:
+    def index(matrix_a: Matrix, matrix_b: Matrix, matrix_c: Matrix, device="cuda") -> IndexPK:
         return _index(matrix_a, matrix_b, matrix_c, device)
 
     @staticmethod

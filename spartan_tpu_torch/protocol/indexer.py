@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.models.r1cs import Matrix, matrix_to_coo, validate_matrix
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops.field import FR
@@ -70,7 +71,9 @@ class IndexVK:
     log_n: int
 
 
-def index(matrix_a: Matrix, matrix_b: Matrix, matrix_c: Matrix, device="cpu") -> IndexPK:
+def index(matrix_a: Matrix, matrix_b: Matrix, matrix_c: Matrix, device="cuda") -> IndexPK:
+    """The prover key on ``device`` (the card unless the caller names another)."""
+    device = kernels.require_device(device)
     n = len(matrix_a)
     if n == 0 or n & (n - 1):
         raise invalid_arg("Matrix width should be a power of 2.")

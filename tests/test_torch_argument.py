@@ -85,3 +85,28 @@ def test_port_verify_rejects_tampering(instance, how):
     bad = Proof.deserialize(bytes(data))
     with pytest.raises(SpartanError):
         MLArgumentForR1CS.verify(pk.vk(), v, bad, vp)
+
+
+def _entry_points():
+    from spartan_tpu_torch.commitment import keygen
+    from spartan_tpu_torch.protocol import indexer
+
+    return {"setup": MLArgumentForR1CS.setup, "index": MLArgumentForR1CS.index,
+            "keygen": keygen, "indexer.index": indexer.index}
+
+
+@pytest.mark.parametrize("name", ["setup", "index", "keygen", "indexer.index"])
+def test_entry_points_default_to_the_card(name):
+    import inspect
+
+    assert inspect.signature(_entry_points()[name]).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["setup", "index", "keygen", "indexer.index"])
+def test_entry_point_without_a_card_raises_instead_of_using_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: the default device builds there")
+    fn = _entry_points()[name]
+    args = (2, SeededFr(1)) if name in ("setup", "keygen") else ([[(0, 1)]] * 2,) * 3
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        fn(*args)

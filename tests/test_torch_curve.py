@@ -197,3 +197,27 @@ def test_g2_team_programs_match_plain_formulas(op):
         got = g2_team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
             g2_team.team_double(pc, 3, hf.P)
         assert got == _coords(want, lane), lane
+
+
+def test_g2_team_madd_program_matches_plain_and_jax():
+    """The mixed add's stage program, with the kernel's edge rules, against
+    curve.add_mixed_plain and the JAX package's add_mixed over G2_FIELD:
+    P + Q, P + P, P + (-P), inf + Q, P + inf, with P Jacobian (Z != 1) and
+    Q affine."""
+    from spartan_tpu_torch.ops import g2_team
+
+    ops, ps, qs = _lanes("g2")
+    base = [ops.double(p) for p in ps]
+    qs2 = list(qs)
+    qs2[1] = base[1]  # P == Q: the doubling rule
+    qs2[2] = ops.neg(base[2])  # P == -Q: infinity
+    jp = jcv.double(jcv.G2_FIELD, jcv.g2_encode(ps))
+    tp, tq = tcv.double(tcv.g2_encode(ps)), tcv.g2_encode(qs2)
+    want = tcv.add_mixed_plain(tp, tq)
+    assert torch.equal(_jax_to_port(jcv.add_mixed(jcv.G2_FIELD, jp, jcv.g2_encode(qs2)), "g2").data,
+                       want.data)
+    for lane in range(tp.n):
+        got = g2_team.team_add(_coords(tp, lane), _coords(tq, lane), hf.P, "MADD")
+        assert got == _coords(want, lane), lane
+    assert tcv.g2_decode(want) == [ops.add(p, q) for p, q in zip(base, qs2)]
+    assert tcv.g2_decode(want)[2] is None

@@ -174,3 +174,29 @@ def test_reduce_wide_large_limbs(name, bits):
     want = [sum(int(wide[j, i]) << (16 * j) for j in range(wide.shape[0])) % tspec.modulus
             for i in range(wide.shape[1])]
     assert tf.decode_ints(tspec, tf.reduce_wide(tspec, torch.from_numpy(wide))) == want
+
+
+def test_batch_inv_plain_root_matches_jax_inv_with_zero_lanes():
+    """batch_inv over the plain product and the plain Fermat root (the CPU
+    path of every Fp inversion) against the JAX package's field.inv."""
+    from functools import partial
+
+    m = tf.FP.modulus
+    xs = [0] + _values(m, 5, 4)[1:] + [0]
+    want = jf.decode_mont(jf.FP, jf.inv(jf.FP, jf.encode_mont(jf.FP, xs)))
+    got = tf.batch_inv(tf.FP, tf.encode_mont(tf.FP, xs), partial(tf.mont_mul_plain, tf.FP),
+                       partial(tf.fermat_inv_plain, tf.FP))
+    assert tf.decode_mont(tf.FP, got) == want == [pow(x, m - 2, m) for x in xs]
+
+
+@pytest.mark.parametrize("name", ["fr", "fp"])
+def test_fermat_inv_is_plain_on_cpu_and_never_falls_back_off_it(name):
+    _jspec, tspec = SPECS[name]
+    m = tspec.modulus
+    xs = _values(m, 3, 5)
+    a = tf.encode_mont(tspec, xs)
+    got = tf.fermat_inv(tspec, a)
+    assert torch.equal(got, tf.fermat_inv_plain(tspec, a))
+    assert tf.decode_mont(tspec, got) == [pow(x, m - 2, m) for x in xs]
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        tf.fermat_inv(tspec, a.to("meta"))

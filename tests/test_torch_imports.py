@@ -79,7 +79,12 @@ def test_kernel_table_names_sources():
     for name, (n_in, src, rep) in kernels.KERNELS.items():
         assert n_in in (1, 2)
         assert (kernels.CSRC / src).exists(), src
-        assert rep.startswith("spartan_tpu/ops/pallas_")
+        # the replaced function's def line; every row a Pallas kernel but
+        # fp_inv, the Fermat chain (field.inv) over the Pallas mont_mul
+        path, line = rep.split(":")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def "), rep
+        assert path.startswith("spartan_tpu/ops/pallas_") or (name, path) == (
+            "fp_inv", "spartan_tpu/ops/field.py"), rep
         assert f"spk_{name}(" in (kernels.CSRC / src).read_text()
     sources = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
     assert set(kernels.INT_ARGS) <= set(kernels.KERNELS)

@@ -19,6 +19,7 @@ from typing import List, Optional
 
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.ops import curve as cv
 from spartan_tpu_torch.ops.curve import PointBatch
 from spartan_tpu_torch.utils import serialize as ser
@@ -69,13 +70,15 @@ class OpenProof:
 
 
 def pp_from_numpy(nv: int, powers_of_g, powers_of_h, g, h, powers_of_h_comb=None,
-                  device="cpu") -> PublicParameter:
-    """The port's ``PublicParameter`` from a JAX one's limb arrays.
+                  device="cuda") -> PublicParameter:
+    """The port's ``PublicParameter`` from a JAX one's limb arrays, on
+    ``device`` (the card unless the caller names another).
 
     powers_of_g: per level, the (x, y, z) arrays of a JAX G1 ``PointBatch``;
     powers_of_h (and powers_of_h_comb): per level, ((x0, x1), (y0, y1),
     (z0, z1)) of a JAX G2 ``PointBatch``. Arrays are (24, N) uint32 with
     16-bit limbs, as numpy or anything ``numpy.asarray`` takes."""
+    device = kernels.require_device(device)
     if len(powers_of_g) != nv or len(powers_of_h) != nv:
         raise ValueError("one G1 and one G2 table per variable expected")
     return PublicParameter(

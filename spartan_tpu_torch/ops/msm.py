@@ -29,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.ops import curve as cv
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops.curve import PointBatch
@@ -203,12 +204,14 @@ def msm(points: PointBatch, scalars: torch.Tensor, c: int = None) -> PointBatch:
     return msm_many(points, [points.n], scalars, c)
 
 
-def fixed_base_table_device(base_pt, ops, encode, c: int = 8, device="cpu") -> PointBatch:
-    """Window table of a fixed base G: entry w * 2^c + d is d * 2^(c w) * G.
+def fixed_base_table_device(base_pt, ops, encode, c: int = 8, device="cuda") -> PointBatch:
+    """Window table of a fixed base G: entry w * 2^c + d is d * 2^(c w) * G,
+    on ``device`` (the card unless the caller names another).
 
     The host gives the 256 doublings 2^j G (Python integers); the entries
     assemble on the device with one masked batched add per digit bit
     (``spartan_tpu/ops/msm.py:680``). Returns a Jacobian batch."""
+    device = kernels.require_device(device)
     nw = SCALAR_BITS // c
     doubles = []
     p = base_pt

@@ -31,7 +31,9 @@ class MatrixExtension:
     _ser_cache: bytes = None
 
     @classmethod
-    def new(cls, matrix: Matrix, num_constraints: int, device="cpu") -> "MatrixExtension":
+    def new(cls, matrix: Matrix, num_constraints: int, device="cuda") -> "MatrixExtension":
+        """M's COO on ``device`` (the card unless the caller names another)."""
+        device = kernels.require_device(device)
         validate_matrix(matrix, num_constraints)
         rows, cols, vals = matrix_to_coo(matrix)
         if not rows:  # keep the kernels' shapes valid for an empty matrix

@@ -87,26 +87,40 @@ def test_port_verify_rejects_tampering(instance, how):
         MLArgumentForR1CS.verify(pk.vk(), v, bad, vp)
 
 
+ENTRY_POINTS = ["setup", "index", "keygen", "indexer.index", "pp_from_numpy",
+                "fixed_base_table_device", "MatrixExtension.new"]
+
+
 def _entry_points():
-    from spartan_tpu_torch.commitment import keygen
+    """name -> (function, arguments that would build on the default device)"""
+    from spartan_tpu.host import curve as hc
+    from spartan_tpu_torch.commitment import keygen, pp_from_numpy
+    from spartan_tpu_torch.ops import curve as cv
+    from spartan_tpu_torch.ops import msm
     from spartan_tpu_torch.protocol import indexer
 
-    return {"setup": MLArgumentForR1CS.setup, "index": MLArgumentForR1CS.index,
-            "keygen": keygen, "indexer.index": indexer.index}
+    mats = ([[(0, 1)]] * 2,) * 3
+    return {"setup": (MLArgumentForR1CS.setup, (2, SeededFr(1))),
+            "index": (MLArgumentForR1CS.index, mats),
+            "keygen": (keygen, (2, SeededFr(1))),
+            "indexer.index": (indexer.index, mats),
+            "pp_from_numpy": (pp_from_numpy, (1, [()], [()], hf.G1_GEN, hf.G2_GEN)),
+            "fixed_base_table_device": (msm.fixed_base_table_device,
+                                        (hf.G1_GEN, hc.G1, cv.g1_encode, 4)),
+            "MatrixExtension.new": (indexer.MatrixExtension.new, (mats[0], 2))}
 
 
-@pytest.mark.parametrize("name", ["setup", "index", "keygen", "indexer.index"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_default_to_the_card(name):
     import inspect
 
-    assert inspect.signature(_entry_points()[name]).parameters["device"].default == "cuda"
+    assert inspect.signature(_entry_points()[name][0]).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("name", ["setup", "index", "keygen", "indexer.index"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_point_without_a_card_raises_instead_of_using_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card: the default device builds there")
-    fn = _entry_points()[name]
-    args = (2, SeededFr(1)) if name in ("setup", "keygen") else ([[(0, 1)]] * 2,) * 3
+    fn, args = _entry_points()[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         fn(*args)

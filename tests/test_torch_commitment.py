@@ -56,6 +56,7 @@ def test_pp_from_numpy_round_trip():
         powers_of_h=[as_np(jcv.g2_encode(g2)), as_np(jcv.g2_encode(g2[:2]))],
         g=g1[0], h=g2[0],
         powers_of_h_comb=[as_np(jcv.g2_encode(g2[:2])), as_np(jcv.g2_encode(g2[:1]))],
+        device="cpu",
     )
     assert cv.g1_decode(pp.powers_of_g[0]) == g1
     assert cv.g2_decode(pp.powers_of_h[0]) == g2

@@ -100,7 +100,7 @@ def test_unsigned_digits_reconstruct_scalars(c):
 
 def test_fixed_base_msm_matches_host():
     g = hc.G1.mul(hf.G1_GEN, 987654321)
-    table = cv.normalize(msm.fixed_base_table_device(g, hc.G1, cv.g1_encode, 4))
+    table = cv.normalize(msm.fixed_base_table_device(g, hc.G1, cv.g1_encode, 4, "cpu"))
     sc = _scalars(6, 8)
     got = cv.g1_decode(msm.fixed_base_msm(table, fo.encode_ints(fo.FR, sc), 4))
     assert got == [hc.G1.mul(g, s) for s in sc]

@@ -11,12 +11,14 @@ exits non-zero:
 2. every entry point of the kernels K1-K4 against its plain PyTorch
    version on the card, on seeded random inputs plus the edge lanes (0, 1,
    m - 1; P + inf, inf + P, P + P, P + (-P)): bit-exact, and timed at 2^16
-   lanes beside its bound; the G2 add and double also at the main path's
-   widths (8 to 2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16) and the G2
-   mixed add at 8, 4,096, 2^16 and 1,029,085 lanes, beside their
-   one-thread versions and every team size; the Fp inversion at 1, 16 and
-   4,096 lanes beside its one-thread version and the fp_mul chain it
-   replaced; nvidia-smi's clocks.sm sampled;
+   lanes beside its bound; the G1 add at every width the 2^16 prove
+   launches it at (1 to 521,701 lanes) and the double at 1 to 2^16 lanes
+   (k = 1, 8 at 1 and 32), the G2 add and double at their widths (8 to
+   2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16) and the G2 mixed add at
+   8, 4,096, 2^16 and 1,029,085 lanes, beside their one-thread versions and
+   every team size; the Fp inversion at 1, 16 and 4,096 lanes beside its
+   one-thread version and the fp_mul chain it replaced; nvidia-smi's
+   clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
    ``tests/fixtures/proof_2e5_seed3.bin``;
@@ -181,6 +183,17 @@ LANE_BYTES = {
     "g1_madd": 432, "g1_add": 432, "g1_double": 288, "g2_madd": 864, "g2_add": 864,
     "g2_double": 576,
 }
+# G1 add and double widths. The add: every width the 2^16 prove launches it
+# at (phase 4 prints them): the commit MSM's Horner step (1 lane), its
+# weighted reduce (32 windows up to 2,048 = 32 x 64 bucket pairs) and its
+# bucket sums (2,047 to 521,701, the widest launch), and 2^16. The double:
+# the prove's widths (1 lane with k = 8, 32 with k = 1), 2,048, 2^16, and
+# between them those where g1_team.cu changes team size or kernel.
+G1_ADD_WIDEST = 521_701
+G1_WIDTHS = {"add": (1, 32, 64, 128, 256, 512, 1024, 2047, 2048, 4069, 8137, 16_305, 32_607,
+                     65_220, 1 << 16, 130_410, 260_855, G1_ADD_WIDEST),
+             "double": (1, 32, 2048, 8192, 16_384, 32_768, 1 << 16)}
+G1_KS = {1: (1, 8), 32: (1, 8)}  # k = 1 elsewhere
 # G2 add and double widths: the openings' Horner steps (7-9 lanes), the
 # weighted reduce (224 = 7 levels x 32 windows up to 28,672 = x 128 buckets),
 # 2^16, and between them the widths where g2_team.cu changes team size.
@@ -189,7 +202,7 @@ G2_KS = {8: (1, 4, 8), 28_672: (1, 4, 8), 1 << 16: (1, 4, 8)}  # k = 1 elsewhere
 # G2 mixed add widths: small, 4,096, 2^16 and the openings' first bucket
 # level at 2^16 (the widest launch of the prove)
 G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
-TEAMS = (4, 8, 16)
+TEAMS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}  # team sizes each group's kernels take
 FP_INV_LANES = (1, 16, 4096)  # the prover inverts 1 lane at a time
 
 
@@ -214,8 +227,7 @@ def _jacobian(aff, rng: np.random.Generator):
     from spartan_tpu_torch.ops.field import FP
 
     n = aff.n
-    lam = _random_field(FP, n, rng, aff.device)
-    lam[:, :3] = lam[:, 3:6]  # no zero scale
+    lam = _random_field(FP, n + 3, rng, aff.device)[:, 3:]  # not 0, 1, m - 1: no zero scale
     lam2 = fo.mont_mul_plain(FP, lam, lam)
     lam3 = fo.mont_mul_plain(FP, lam2, lam)
     d = aff.data
@@ -233,8 +245,9 @@ def _jacobian(aff, rng: np.random.Generator):
 def _random_points(group: str, n: int, rng: np.random.Generator, dev):
     """n Jacobian points p of ``group`` on the card, q affine-encoded, and
     the host twins of their first 8 lanes. 64 host points and their
-    negations, encoded once and gathered on the card. Lanes 0-3 of (p, q)
-    are the edge lanes inf + P, P + inf, P + P and P + (-P)."""
+    negations, encoded once and gathered on the card. From 8 lanes up,
+    lanes 0-3 of (p, q) are the edge lanes inf + P, P + inf, P + P and
+    P + (-P); narrower batches hold generic lanes only."""
     from spartan_tpu_torch.host import curve as hc
     from spartan_tpu_torch.host import field as hf
     from spartan_tpu_torch.ops import curve as cv
@@ -248,10 +261,11 @@ def _random_points(group: str, n: int, rng: np.random.Generator, dev):
     table = base + [ops.neg(b) for b in base] + [None]  # 64 + i: -base[i]; 128: inf
     lanes = np.arange(n)
     pi, qi = lanes % 64, (7 * lanes + 3) % 64
-    pi[0] = 128  # inf + P
-    qi[1] = 128  # P + inf
-    qi[2] = pi[2]  # P + P
-    qi[3] = 64 + pi[3]  # P + (-P)
+    if n >= 8:
+        pi[0] = 128  # inf + P
+        qi[1] = 128  # P + inf
+        qi[2] = pi[2]  # P + P
+        qi[3] = 64 + pi[3]  # P + (-P)
     enc_table = enc(table, dev)
     p, q = (enc_table.take(torch.from_numpy(i).to(dev)) for i in (pi, qi))
     return (_jacobian(p, rng), q, [table[i] for i in pi[:8]], [table[i] for i in qi[:8]])
@@ -271,8 +285,9 @@ def _add_products(op: str, p, q) -> int:
 
 def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
     """Every entry point vs its plain version at TIMED_LANES lanes, and the
-    G2 add and double at G2_WIDTHS beside their one-thread versions and
-    every team size (the measurements behind g2_team.cu's team sizes)."""
+    team point kernels at the main path's widths beside their one-thread
+    versions and every team size (the measurements behind g1_team.cu's and
+    g2_team.cu's team sizes)."""
     from spartan_tpu_torch import kernels
     from spartan_tpu_torch.host import curve as hc
     from spartan_tpu_torch.ops import curve as cv
@@ -338,72 +353,88 @@ def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
             ins = [a.data for a in args]
             nbytes = LANE_BYTES[name] * n
             products = PRODUCTS[name] * n if op == "double" else _add_products(op, *args)
-            extra = (1,) if name == "g2_double" else ()
+            extra = (1,) if op == "double" else ()
             record(name, got.data, want.data, direct(name, torch.empty_like(ins[0]), *ins, args=extra),
                    lambda: plain(*args), products, nbytes)
 
-    g2 = {r["name"]: r for r in rows}
-    for lanes in G2_WIDTHS:
-        g2["g2_add"].setdefault("widths", []).append(_g2_width(card, "add", lanes, 1, rng, dev))
-        for k in G2_KS.get(lanes, (1,)):
-            g2["g2_double"].setdefault("widths", []).append(_g2_width(card, "double", lanes, k, rng, dev))
-    for lanes in G2_MADD_WIDTHS:
-        g2["g2_madd"].setdefault("widths", []).append(_g2_width(card, "madd", lanes, 1, rng, dev))
+    by_name = {r["name"]: r for r in rows}
+
+    def sweep(group, op, widths, ks):
+        for lanes in widths:
+            for k in ks.get(lanes, (1,)):
+                by_name[f"{group}_{op}"].setdefault("widths", []).append(
+                    _team_width(card, group, op, lanes, k, rng, dev))
+
+    for op, widths in G1_WIDTHS.items():
+        sweep("g1", op, widths, G1_KS if op == "double" else {})
+    sweep("g2", "add", G2_WIDTHS, {})
+    sweep("g2", "double", G2_WIDTHS, G2_KS)
+    sweep("g2", "madd", G2_MADD_WIDTHS, {})
     rows.append(_fp_inv_row(card, rng, dev))
     return rows
 
 
-def _g2_width(card: Card, op: str, lanes: int, k: int, rng, dev) -> dict:
-    """g2_add, g2_madd (k = 1) or g2_double (2^k P) at `lanes` lanes: the
-    entry point, every team size and the one-thread kernel, each bit-exact
-    against the plain version, edge lanes included, and timed beside the
-    bound."""
+def _team_versions(name: str, ins, k: int, teams) -> list:
+    """(label, call, result) for the entry point, every team size and the
+    one-thread kernel of ``name`` on inputs ``ins``; a k-fold double's
+    one-thread version is k launches, each doubling the last result."""
+    double = name.endswith("_double")
+    args = (k,) if double else ()
+    new = lambda: torch.empty_like(ins[0])  # noqa: E731
+    out = new()
+    versions = [("entry", direct(name, out, *ins, args=args), out)]
+    for team in teams:
+        out = new()
+        versions.append((f"team{team}", direct(f"{name}_team", out, *ins, args=args + (team,)), out))
+    if not double:
+        out = new()
+        versions.append(("onethread", direct(f"{name}_onethread", out, *ins), out))
+    else:
+        a, b = new(), new()
+        chain = [direct(f"{name}_onethread", a if i % 2 == 0 else b,
+                        ins[0] if i == 0 else (b if i % 2 == 0 else a)) for i in range(k)]
+        versions.append(("onethread", lambda: [c() for c in chain], a if k % 2 else b))
+    return versions
+
+
+def _team_width(card: Card, group: str, op: str, lanes: int, k: int, rng, dev) -> dict:
+    """An add, mixed add (k = 1) or k-fold double of ``group`` at ``lanes``
+    lanes: the entry point, every team size and the one-thread kernel, each
+    bit-exact against the plain version, edge lanes included (a width under
+    8 lanes is also checked at 8, where the edge lanes are), and timed
+    beside the bound."""
     from spartan_tpu_torch.ops import curve as cv
 
-    p, q, _ph, _qh = _random_points("g2", lanes, rng, dev)
-    if op == "double":
-        ins, want = (p.data,), cv.double_plain(p, k).data
-        got = cv.double(p, k).data
-        products, nbytes = PRODUCTS["g2_double"] * lanes * k, LANE_BYTES["g2_double"] * lanes
-        plain_fn = lambda: cv.double_plain(p, k)  # noqa: E731
-    else:  # the mixed add takes Q affine-encoded, the add with its own Z
-        wrap, plain = (cv.add_mixed, cv.add_mixed_plain) if op == "madd" else (cv.add, cv.add_plain)
-        q2 = q if op == "madd" else _jacobian(q, rng)
-        ins, want = (p.data, q2.data), plain(p, q2).data
-        got = wrap(p, q2).data
-        products, nbytes = _add_products(op, p, q2), LANE_BYTES[f"g2_{op}"] * lanes
-        plain_fn = lambda: plain(p, q2)  # noqa: E731
-    label = f"g2_{op} lanes={lanes} k={k}"
-    check(torch.equal(got, want), f"{label}: kernel disagrees with its plain version")
-    out = torch.empty_like(p.data)
-    int_args = (k,) if op == "double" else ()
-    row = {"lanes": lanes, "k": k, "ms": cuda_ms(direct(f"g2_{op}", out, *ins, args=int_args), 20)}
-    for team in TEAMS:
-        call = direct(f"g2_{op}_team", out, *ins, args=int_args + (team,))
-        out.zero_()
-        call()
-        check(torch.equal(out, want), f"{label} team {team}: disagrees with the plain version")
-        row[f"team{team}_ms"] = cuda_ms(call, 20)
-    one = direct(f"g2_{op}_onethread", out, *ins)
-    if op != "double":
-        one()
-        check(torch.equal(out, want), f"{label} one-thread kernel: disagrees with the plain version")
-        row["onethread_ms"] = cuda_ms(one, 20)
-    else:  # k one-thread launches, each doubling the last result
-        tmp = torch.empty_like(out)
-        chain = [direct("g2_double_onethread", tmp if i % 2 == 0 else out,
-                        p.data if i == 0 else (out if i % 2 == 0 else tmp)) for i in range(k)]
-        for c in chain:
-            c()
-        check(torch.equal(tmp if k % 2 else out, want),
-              f"{label} one-thread kernel: disagrees with the plain version")
-        row["onethread_ms"] = cuda_ms(lambda: [c() for c in chain], 20)
+    name = f"{group}_{op}"
+    label = f"{name} lanes={lanes} k={k}"
+    for n in (8, lanes) if lanes < 8 else (lanes,):
+        p, q, _ph, _qh = _random_points(group, n, rng, dev)
+        if op == "double":
+            ins, got = (p.data,), cv.double(p, k).data
+            plain_fn = lambda: cv.double_plain(p, k)  # noqa: E731
+            products = PRODUCTS[name] * n * k
+        else:  # the mixed add takes Q affine-encoded, the add with its own Z
+            wrap, plain = (cv.add_mixed, cv.add_mixed_plain) if op == "madd" else (cv.add, cv.add_plain)
+            q2 = q if op == "madd" else _jacobian(q, rng)
+            ins, got = (p.data, q2.data), wrap(p, q2).data
+            plain_fn = lambda: plain(p, q2)  # noqa: E731
+            products = _add_products(op, p, q2)
+        want = plain_fn().data
+        check(torch.equal(got, want), f"{label}: kernel disagrees with its plain version ({n} lanes)")
+        versions = _team_versions(name, ins, k, TEAMS[group])
+        for what, call, out in versions:
+            out.zero_()
+            call()
+            check(torch.equal(out, want), f"{label} {what}: disagrees with the plain version ({n} lanes)")
+    row = {"lanes": lanes, "k": k}
+    for what, call, _out in versions:
+        row["ms" if what == "entry" else f"{what}_ms"] = cuda_ms(call, 20)
     row["plain_ms"] = cuda_ms(plain_fn, 1 if lanes > 1 << 17 else 2 if lanes > 1024 else 5)
-    row["bound_ms"], row["bound_by"] = card.bound(products, nbytes)
+    row["bound_ms"], row["bound_by"] = card.bound(products, LANE_BYTES[name] * lanes)
     print(f"{label} bit-exact (entry, teams, one-thread): entry {row['ms']:.4f} ms  "
-          + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in TEAMS)
+          + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in TEAMS[group])
           + f"  one-thread {row['onethread_ms']:.4f}  plain {row['plain_ms']:.3f}  "
-          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+          f"bound {row['bound_ms']:.2e} ms ({row['bound_by']})", flush=True)
     return row
 
 
@@ -542,6 +573,11 @@ def phase_full(dev, card: Card, log_n: int = 16):
     print("full: prove doublings " + json.dumps(prove_doublings), flush=True)
     print("full: prove [[lanes, (k)], launches], most launched first " + json.dumps(prove_widths),
           flush=True)
+    for k in ("g1_add", "g1_double"):  # every shape the prove launched them at, widest first
+        diff = {key: m - before[2].get(k, {}).get(key, 0) for key, m in kernels.LANES[k].items()}
+        print(f"full: prove {k} [[lanes, (k)], launches], all, widest first "
+              + json.dumps(sorted(([list(key), m] for key, m in diff.items() if m), reverse=True)),
+              flush=True)
     bounds = {}  # the bound of one launch at the most launched shape; every lane counted
     for k, top in prove_widths.items():
         (lanes, *reps), _m = top[0]
@@ -629,9 +665,9 @@ def phase_profile(prove, warm: int = 5) -> None:
 def _entry_point(kernel: str):
     """The entry point of csrc/ that launches the device kernel named
     ``kernel`` (as the profiler names it), or None for PyTorch's own."""
-    m = re.search(r"team_kernel<\d+, (\d)>", kernel)
+    m = re.search(r"team_kernel<(?:\w+::)?(G[12]), \d+, (\d)>", kernel)
     if m:
-        return ("g2_double", "g2_add", "g2_madd")[int(m.group(1))]
+        return m.group(1).lower() + "_" + ("double", "add", "madd")[int(m.group(2))]
     if re.search(r"inv_(warp|thread)_kernel", kernel):
         return "fp_inv"
     m = re.search(r"pt_kernel<(Fe<FpParams>|Fp2), (\d)>", kernel)

@@ -2,7 +2,7 @@
 // field.cuh's CIOS product and its canonical add and subtract, one
 // instruction a limb where field.cuh's 64-bit sums take two dependent ones.
 // Same results; faster at every width measured on the H100 (PERF.md). Used by the
-// team G2 kernels (g2_team.cuh) and the one-thread Fermat inversion
+// team point kernels (team.cuh) and the one-thread Fermat inversion
 // (fp_ops.cu). The host branch runs the same code on a software carry flag,
 // for the host pass of nvcc and for g++.
 #pragma once

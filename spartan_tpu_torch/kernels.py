@@ -13,12 +13,13 @@ failed load raises ``KernelBuildError`` with the compiler's output.
 Every entry point has a launch counter in ``LAUNCHES``; ``launch`` adds one
 where it launches and nowhere else, so a run can show which kernels its path
 went through. ``DOUBLINGS`` counts the doublings the double kernels did
-(one ``g2_double`` launch doubles k times) and ``LANES`` the launches of
-each kernel by lane count and int arguments.
+(one ``g1_double`` or ``g2_double`` launch doubles k times) and ``LANES``
+the launches of each kernel by lane count and int arguments.
 
 ``YARDSTICKS`` are entry points that only ``chip_smoke.py`` calls, to time a
-kernel against other versions of it (the G2 team kernels at each team size,
-the one-thread G2 kernels and Fp inversion); they count no launches.
+kernel against other versions of it (the team point kernels at each team
+size, the one-thread G1 and G2 kernels and Fp inversion); they count no
+launches.
 """
 
 from __future__ import annotations
@@ -53,18 +54,22 @@ KERNELS = {
     "fp_sub": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:262"),
     "fp_inv": (1, "fp_ops.cu", "spartan_tpu/ops/field.py:299"),
     "g1_madd": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:385"),
-    "g1_add": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:378"),
-    "g1_double": (1, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:392"),
+    "g1_add": (2, "g1_team.cu", "spartan_tpu/ops/pallas_curve.py:378"),
+    "g1_double": (1, "g1_team.cu", "spartan_tpu/ops/pallas_curve.py:392"),
     "g2_madd": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:410"),
     "g2_add": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:399"),
     "g2_double": (1, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:421"),
 }
 
 # entry point -> number of int arguments after the lane count
-INT_ARGS = {"g2_double": 1}  # k: the launch returns 2^k P
+INT_ARGS = {"g1_double": 1, "g2_double": 1}  # k: the launch returns 2^k P
 
 # yardstick -> (number of input arrays, number of int arguments)
 YARDSTICKS = {
+    "g1_add_team": (2, 1),  # team size
+    "g1_double_team": (1, 2),  # k, team size
+    "g1_add_onethread": (2, 0),
+    "g1_double_onethread": (1, 0),
     "g2_add_team": (2, 1),  # team size
     "g2_madd_team": (2, 1),  # team size
     "g2_double_team": (1, 2),  # k, team size
@@ -228,5 +233,5 @@ def launch(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()) -> torch.T
     LAUNCHES[name] += 1
     LANES[name][(n, *args)] += 1
     if name.endswith("_double"):
-        DOUBLINGS[name] += args[0] if args else 1
+        DOUBLINGS[name] += args[0]
     return out

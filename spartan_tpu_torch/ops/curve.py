@@ -7,8 +7,9 @@ is Z = 0; after ``normalize`` it is x = y = z = 0, and a finite affine point
 has z = 1 (Montgomery one).
 
 ``double``, ``add`` and ``add_mixed`` are the wrappers of the point kernels
-K3 (G1, ``csrc/g1_ops.cu``) and K4 (G2, ``csrc/g2_ops.cu``); the G2 double
-takes a repeat count k and returns 2^k P in one launch. For CPU
+K3 (G1: ``csrc/g1_team.cu``, mixed add ``csrc/g1_ops.cu``) and K4 (G2,
+``csrc/g2_team.cu``); the double takes a repeat count k and returns 2^k P in
+one launch. For CPU
 tensors they run the plain PyTorch versions beside them (``*_plain``), which
 evaluate the same formulas (dbl-2009-l, add-2007-bl, madd-2007-bl, a = 0)
 with the same edge-lane rules, so kernel and plain version agree limb for
@@ -227,16 +228,12 @@ def _launch(op: str, p: PointBatch, q: PointBatch = None, args=()) -> PointBatch
 
 
 def double(p: PointBatch, k: int = 1) -> PointBatch:
-    """2^k P: one launch of the G2 kernel, k launches of the G1 one."""
+    """2^k P in one launch of the group's double kernel."""
     if k < 1:
         raise ValueError(f"doubling count k = {k} must be positive")
     if p.device.type == "cpu":
         return double_plain(p, k)
-    if p.group == "g2":
-        return _launch("double", p, args=(k,))
-    for _ in range(k):
-        p = _launch("double", p)
-    return p
+    return _launch("double", p, args=(k,))
 
 
 def add(p: PointBatch, q: PointBatch) -> PointBatch:

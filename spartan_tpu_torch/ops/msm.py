@@ -20,7 +20,7 @@ Variable-base pipeline, for L problems at once:
 4. the weighted bucket sum sum_b (b + 1) S_b of every window by a pair
    tree (``_weighted_reduce``);
 5. Horner across windows, batched over the L problems: c doublings per
-   window, one G2 launch with k = c (c launches for G1).
+   window, one double launch with k = c.
 """
 
 from __future__ import annotations

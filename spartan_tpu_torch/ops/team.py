@@ -1,28 +1,30 @@
-"""Stage programs of the team G2 kernels (K4 ``g2_add``, ``g2_madd`` and
-``g2_double``, ``csrc/g2_team.cuh``), written at the level of Fp operations.
+"""Stage programs of the team point kernels (``csrc/team.cuh``), written at
+the level of Fp operations: K3's G1 add and 2^k-fold double, and K4's G2
+add, mixed add and 2^k-fold double.
 
-A team of T threads computes one G2 point. The formulas of ``ops/curve.py``
+A team of T threads computes one point. The formulas of ``ops/curve.py``
 (dbl-2009-l, add-2007-bl, madd-2007-bl with a = 0) are written here as
 stages: every operation of a stage reads only values that earlier stages
 wrote, so the team's threads share out a stage's operations and meet at one
-``__syncwarp`` after it. Karatsuba gives three independent Fp products per
-Fp2 multiply and the complex square two, so the chain of dependent Fp
-products is 3 deep for a double (16 products) and 5 deep for an add (44)
-and a mixed add (30).
+``__syncwarp`` after it. Over Fp2, Karatsuba gives three independent Fp
+products per multiply and the complex square two. The chain of dependent
+Fp products is 3 deep for a double (G1 7 products, G2 16) and 5 deep for
+an add (G1 16, G2 44) and the G2 mixed add (30).
 
 An operation is a Montgomery product ``d = a * b`` or a linear combination
 ``d = s * (sum of +-terms)``, a term repeated to give it a coefficient and
 ``s`` a small integer scale. Every value lives in a slot of the team's
-shared memory, 12 limbs each. The inputs are P in slots 0-5 (x.c0, x.c1,
-y.c0, y.c1, z.c0, z.c1) and, for the adds, Q in slots 6-11; the result
-overwrites P's slots. ``allocate`` gives every other value the lowest slot
-free over its lifetime and checks that no stage reads a slot that it also
-writes, which makes the order of a stage's operations free.
+shared memory, 12 limbs each. The inputs are P in the first slots (G1: x,
+y, z; G2: x.c0, x.c1, y.c0, y.c1, z.c0, z.c1) and, for the adds, Q in the
+next ones; the result overwrites P's slots. ``allocate`` gives every other
+value the lowest slot free over its lifetime and checks that no stage
+reads a slot that it also writes, which makes the order of a stage's
+operations free.
 
-``emit_header`` writes ``csrc/g2_team_prog.cuh``, the tables the kernels
-run; ``python -m spartan_tpu_torch.ops.g2_team`` regenerates it. ``run``
-executes a program on Python integers modulo p, which the CPU tests hold
-against the plain point formulas.
+``emit_header`` writes ``csrc/team_prog.cuh``, the tables the kernels run
+(``G1T_*`` and ``G2T_*``); ``python -m spartan_tpu_torch.ops.team``
+regenerates it. ``run`` executes a program on Python integers modulo p,
+which the CPU tests hold against the plain point formulas.
 """
 
 from __future__ import annotations
@@ -32,14 +34,41 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Tuple
 
-P_SLOTS = ["PX0", "PX1", "PY0", "PY1", "PZ0", "PZ1"]
-Q_SLOTS = ["QX0", "QX1", "QY0", "QY1", "QZ0", "QZ1"]
 MAX_TERMS = 12  # terms of one linear operation (the table's op record)
+
+# dbl-2009-l as curve._double_coords computes it: A = X^2, B = Y^2, C = B^2,
+# D = 2((X + B)^2 - A - C), E = 3A, X3 = E^2 - 2D, Y3 = E(D - X3) - 8C,
+# Z3 = 2YZ. Written with (X + B)^2 - A - C = 2XB and E^2 = 9A^2, so that the
+# second product stage reads the first one's products directly: D = 4XB,
+# W = D - X3 = 3(4XB - 3A^2), E W = 3 A W, X3 = D - W. 7 products in 3
+# stages and two linear stages.
+G1_DOUBLE = [
+    ["a = PX * PX", "b = PY * PY", "yz = PY * PZ"],
+    ["c = b * b", "xb = PX * b", "g = a * a"],
+    ["W = 3*(4*xb - 3*g)", "C8 = 8*(c)", "PZ = 2*(yz)"],
+    ["aw = a * W"],
+    ["PY = 3*aw - C8", "PX = 4*xb - W"],
+]
+
+# add-2007-bl as curve.add_plain computes it: Z1Z1 = Z1^2, Z2Z2 = Z2^2,
+# U1 = X1 Z2Z2, U2 = X2 Z1Z1, S1 = Y1 Z2 Z2Z2, S2 = Y2 Z1 Z1Z1, H = U2 - U1,
+# R = S2 - S1, X3 = R^2 - H^3 - 2 U1 H^2, Y3 = R (U1 H^2 - X3) - S1 H^3,
+# Z3 = Z1 Z2 H. 16 products in 5 dependent stages.
+G1_ADD = [
+    ["zz1 = PZ * PZ", "zz2 = QZ * QZ", "a = PY * QZ", "b = QY * PZ", "m = PZ * QZ"],
+    ["U1 = PX * zz2", "U2 = QX * zz1", "S1 = a * zz2", "S2 = b * zz1"],
+    ["H = U2 - U1", "R = S2 - S1"],
+    ["h2 = H * H", "r2 = R * R", "PZ = m * H"],
+    ["h3 = H * h2", "uh = U1 * h2"],
+    ["PX = r2 - h3 - 2*uh", "W = 3*uh - r2 + h3"],
+    ["e = R * W", "f = S1 * h3"],
+    ["PY = e - f"],
+]
 
 # dbl-2009-l: A = X^2, B = Y^2, C = B^2, D = 2((X + B)^2 - A - C), E = 3A,
 # X3 = E^2 - 2D, Y3 = E(D - X3) - 8C, Z3 = 2YZ. A name ending in m is the
 # product c0 * c1 of a complex square, whose c1 is twice it.
-DOUBLE = [
+G2_DOUBLE = [
     ["xs = PX0 + PX1", "xd = PX0 - PX1", "ys = PY0 + PY1", "yd = PY0 - PY1", "zs = PZ0 + PZ1"],
     ["a0 = xs * xd", "am = PX0 * PX1", "b0 = ys * yd", "bm = PY0 * PY1",
      "k0 = PY0 * PZ0", "k1 = PY1 * PZ1", "k2 = ys * zs"],
@@ -61,7 +90,7 @@ DOUBLE = [
 # R = S2 - S1, X3 = R^2 - H^3 - 2 U1 H^2, Y3 = R (U1 H^2 - X3) - S1 H^3,
 # Z3 = Z1 Z2 H. A name ending in s (d) holds c0 + c1 (c0 - c1) of an Fp2
 # value, the operand of a Karatsuba (complex-square) product.
-ADD = [
+G2_ADD = [
     ["z1s = PZ0 + PZ1", "z1d = PZ0 - PZ1", "z2s = QZ0 + QZ1", "z2d = QZ0 - QZ1",
      "y1s = PY0 + PY1", "y2s = QY0 + QY1", "x1s = PX0 + PX1", "x2s = QX0 + QX1"],
     ["p0 = z1s * z1d", "pm = PZ0 * PZ1", "q0 = z2s * z2d", "qm = QZ0 * QZ1",
@@ -95,15 +124,13 @@ ADD = [
      "f0 = S10 * H30", "f1 = S11 * H31", "f2 = S1s * H3s"],
     ["PY0 = e0 - e1 - f0 + f1", "PY1 = e2 - e0 - e1 - f2 + f0 + f1"],
 ]
-ADD_CHECK_STAGE = 4  # after this stage the add kernels test H = R = 0 (P == Q)
-ADD_CHECK = ["H0", "H1", "R0", "R1"]
 
 # madd-2007-bl as in curve.add_mixed_plain, Q affine (Z2 = 1): Z1Z1 = Z1^2,
 # U2 = X2 Z1Z1, S2 = Y2 Z1 Z1Z1, H = U2 - X1, R = S2 - Y1,
 # X3 = R^2 - H^3 - 2 X1 H^2, Y3 = R (X1 H^2 - X3) - Y1 H^3, Z3 = Z1 H.
 # 30 Fp products in 5 dependent stages; Q's Z slots are read only by the
 # kernel's Q = inf test.
-MADD = [
+G2_MADD = [
     ["z1s = PZ0 + PZ1", "z1d = PZ0 - PZ1", "y2s = QY0 + QY1", "x2s = QX0 + QX1",
      "x1s = PX0 + PX1", "y1s = PY0 + PY1"],
     ["p0 = z1s * z1d", "pm = PZ0 * PZ1", "b0 = QY0 * PZ0", "b1 = QY1 * PZ1", "b2 = y2s * z1s"],
@@ -160,9 +187,10 @@ class Program:
     nslots: int
 
 
-def allocate(stages_src, inputs: List[str]) -> Program:
+def allocate(stages_src, inputs: List[str], outputs: List[str]) -> Program:
     """Parse and place every value in the lowest slot free over its life
-    (from the stage that writes it to the last stage that reads it)."""
+    (from the stage that writes it to the last stage that reads it). Of the
+    inputs, only ``outputs`` (P's slots) may be written."""
     stages = [[parse(s) for s in st] for st in stages_src]
     slot = {name: i for i, name in enumerate(inputs)}
     born, last = {}, {}
@@ -173,7 +201,7 @@ def allocate(stages_src, inputs: List[str]) -> Program:
                     raise ValueError(f"stage {si}: {name} read before it is written")
                 last[name] = si
             if op.dst in slot:
-                if op.dst not in P_SLOTS:
+                if op.dst not in outputs:
                     raise ValueError(f"stage {si}: {op.dst} overwrites an input")
             elif op.dst in born:
                 raise ValueError(f"stage {si}: {op.dst} written twice")
@@ -201,11 +229,45 @@ def allocate(stages_src, inputs: List[str]) -> Program:
     return prog
 
 
-PROGRAMS = {"DBL": allocate(DOUBLE, P_SLOTS), "ADD": allocate(ADD, P_SLOTS + Q_SLOTS),
-            "MADD": allocate(MADD, P_SLOTS + Q_SLOTS)}
-# P == Q falls to the double on P's slots, so the adds keep them until then
-assert all(op.dst not in P_SLOTS for src in (ADD, MADD)
-           for st in src[: ADD_CHECK_STAGE + 1] for op in map(parse, st))
+@dataclass
+class Group:
+    """A group's programs and the kernel's edge rules over them: the adds
+    test H = R = 0 (P == Q) on the ``check`` values after stage
+    ``check_stage`` and fall to the double there."""
+
+    prefix: str  # of the header's names
+    p_slots: List[str]
+    programs: Dict[str, Program]  # "DBL", then the adds
+    check_stage: int
+    check: List[str]
+
+    @property
+    def ncoord(self) -> int:
+        return len(self.p_slots)
+
+
+def _group(prefix, p_slots, q_slots, double, adds, check_stage, check) -> Group:
+    programs = {"DBL": allocate(double, p_slots, p_slots)}
+    for name, src in adds.items():
+        # P == Q falls to the double on P's slots, so the adds keep them
+        # until the test
+        assert all(op.dst not in p_slots for st in src[: check_stage + 1] for op in map(parse, st))
+        programs[name] = allocate(src, p_slots + q_slots, p_slots)
+    return Group(prefix, p_slots, programs, check_stage, check)
+
+
+GROUPS = {
+    "g1": _group("G1T", ["PX", "PY", "PZ"], ["QX", "QY", "QZ"], G1_DOUBLE, {"ADD": G1_ADD},
+                 2, ["H", "R"]),
+    "g2": _group("G2T", ["PX0", "PX1", "PY0", "PY1", "PZ0", "PZ1"],
+                 ["QX0", "QX1", "QY0", "QY1", "QZ0", "QZ1"], G2_DOUBLE,
+                 {"ADD": G2_ADD, "MADD": G2_MADD}, 4, ["H0", "H1", "R0", "R1"]),
+}
+
+
+def _of(coords: List[int]) -> Group:
+    """The group whose points have len(coords) Fp coordinates."""
+    return {g.ncoord: g for g in GROUPS.values()}[len(coords)]
 
 
 def run(prog: Program, slots: List[int], p: int, stages=None) -> List[int]:
@@ -223,30 +285,33 @@ def run(prog: Program, slots: List[int], p: int, stages=None) -> List[int]:
 
 
 def team_double(coords: List[int], k: int, p: int) -> List[int]:
-    """2^k P as the double kernel computes it: coords are P's six Fp values
-    (x.c0 .. z.c1) as ints mod p; returns the result's six."""
-    prog = PROGRAMS["DBL"]
-    slots = list(coords) + [0] * (prog.nslots - 6)
+    """2^k P as the double kernel computes it: coords are P's Fp values (G1
+    x, y, z; G2 x.c0 .. z.c1) as ints mod p; returns the result's."""
+    g = _of(coords)
+    prog = g.programs["DBL"]
+    slots = list(coords) + [0] * (prog.nslots - g.ncoord)
     for _ in range(k):
         run(prog, slots, p)
-    return slots[:6]
+    return slots[: g.ncoord]
 
 
 def team_add(pc: List[int], qc: List[int], p: int, name: str = "ADD") -> List[int]:
-    """P + Q as the add (``name`` "ADD") or mixed add ("MADD", Q affine)
+    """P + Q as the add (``name`` "ADD") or G2 mixed add ("MADD", Q affine)
     kernel computes it, edge rules in the kernel's order: P = inf -> Q;
     Q = inf -> P; H = R = 0 -> double(P)."""
-    if pc[4] == pc[5] == 0:
+    g = _of(pc)
+    z = slice(2 * g.ncoord // 3, None)  # Z's coordinates
+    if not any(pc[z]):
         return list(qc)
-    if qc[4] == qc[5] == 0:
+    if not any(qc[z]):
         return list(pc)
-    prog = PROGRAMS[name]
-    slots = list(pc) + list(qc) + [0] * (prog.nslots - 12)
-    run(prog, slots, p, slice(0, ADD_CHECK_STAGE + 1))
-    if all(slots[prog.slot[n]] == 0 for n in ADD_CHECK):
-        return team_double(slots[:6], 1, p)
-    run(prog, slots, p, slice(ADD_CHECK_STAGE + 1, None))
-    return slots[:6]
+    prog = g.programs[name]
+    slots = list(pc) + list(qc) + [0] * (prog.nslots - 2 * g.ncoord)
+    run(prog, slots, p, slice(0, g.check_stage + 1))
+    if all(slots[prog.slot[n]] == 0 for n in g.check):
+        return team_double(slots[: g.ncoord], 1, p)
+    run(prog, slots, p, slice(g.check_stage + 1, None))
+    return slots[: g.ncoord]
 
 
 def _records(prog: Program) -> List[str]:
@@ -267,37 +332,43 @@ def _records(prog: Program) -> List[str]:
 
 
 def emit_header() -> str:
-    dbl, add, madd = PROGRAMS["DBL"], PROGRAMS["ADD"], PROGRAMS["MADD"]
     lines = [
-        "// Generated by spartan_tpu_torch/ops/g2_team.py (python -m spartan_tpu_torch.ops.g2_team);",
-        "// do not edit. The stage programs of the team G2 kernels (g2_team.cuh).",
+        "// Generated by spartan_tpu_torch/ops/team.py (python -m spartan_tpu_torch.ops.team);",
+        "// do not edit. The stage programs of the team point kernels (team.cuh).",
         "#pragma once",
-        "",
-        f"#define G2T_DBL_SLOTS {dbl.nslots}",
-        f"#define G2T_ADD_SLOTS {max(dbl.nslots, add.nslots)}  // the add may fall to the double",
-        f"#define G2T_MADD_SLOTS {max(dbl.nslots, madd.nslots)}",
     ]
-    for name, prog in PROGRAMS.items():
-        ends, n = [], 0
-        for st in prog.stages:
-            n += len(st)
-            ends.append(n)
-        lines += [
-            f"#define G2T_{name}_NSTAGE {len(prog.stages)}",
-            f"static __constant__ uint8_t G2T_{name}_END[{len(ends)}] = {{{', '.join(map(str, ends))}}};",
-            f"static __constant__ TeamOp G2T_{name}_OPS[{n}] = {{",
-            *_records(prog),
-            "};",
-        ]
-    lines.append(f"#define G2T_ADD_CHECK_STAGE {ADD_CHECK_STAGE}  // both adds")
-    for name, prog in (("ADD", add), ("MADD", madd)):
-        lines.append(f"static __constant__ uint8_t G2T_{name}_CHECK[4] = {{"
-                     + ", ".join(str(prog.slot[n]) for n in ADD_CHECK) + "};")
+    for g in GROUPS.values():
+        dbl = g.programs["DBL"]
+        lines += ["", f"// {g.prefix[:2]}: P in slots 0-{g.ncoord - 1}, Q in slots "
+                  f"{g.ncoord}-{2 * g.ncoord - 1}",
+                  f"#define {g.prefix}_DBL_SLOTS {dbl.nslots}"]
+        for name, prog in g.programs.items():
+            if name != "DBL":  # an add may fall to the double
+                lines.append(f"#define {g.prefix}_{name}_SLOTS {max(dbl.nslots, prog.nslots)}")
+        for name, prog in g.programs.items():
+            ends, n = [], 0
+            for st in prog.stages:
+                n += len(st)
+                ends.append(n)
+            lines += [
+                f"#define {g.prefix}_{name}_NSTAGE {len(prog.stages)}",
+                f"static __constant__ uint8_t {g.prefix}_{name}_END[{len(ends)}] = "
+                f"{{{', '.join(map(str, ends))}}};",
+                f"static __constant__ TeamOp {g.prefix}_{name}_OPS[{n}] = {{",
+                *_records(prog),
+                "};",
+            ]
+        lines += [f"#define {g.prefix}_CHECK_STAGE {g.check_stage}  // the adds test H = R = 0 after it",
+                  f"#define {g.prefix}_NCHECK {len(g.check)}"]
+        for name, prog in g.programs.items():
+            if name != "DBL":
+                lines.append(f"static __constant__ uint8_t {g.prefix}_{name}_CHECK[{len(g.check)}] = {{"
+                             + ", ".join(str(prog.slot[n]) for n in g.check) + "};")
     lines.append("")
     return "\n".join(lines)
 
 
-HEADER = Path(__file__).resolve().parent.parent / "csrc" / "g2_team_prog.cuh"
+HEADER = Path(__file__).resolve().parent.parent / "csrc" / "team_prog.cuh"
 
 if __name__ == "__main__":
     HEADER.write_text(emit_header())

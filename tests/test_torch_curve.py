@@ -136,41 +136,52 @@ def test_host_curve_ops_match_jax_package(group):
         assert thc.g1_lincomb([p, q], [3, 5]) == hc.g1_lincomb([p, q], [3, 5])
 
 
-_JAX_G2_DOUBLINGS = {}
+_JAX_DOUBLINGS = {}
 
 
-def _jax_g2_doublings(upto: int):
-    """2^j P for j = 1..upto by the JAX package's jnp double (G2_FIELD), on
-    the test lanes (infinity among them), computed once."""
-    if not _JAX_G2_DOUBLINGS:
-        _ops, ps, _qs = _lanes("g2")
-        jp = jcv.double(jcv.G2_FIELD, jcv.g2_encode(ps))  # Jacobian, Z != 1
-        _JAX_G2_DOUBLINGS[0] = jp
-        for j in range(1, upto + 1):
-            jp = jcv.double(jcv.G2_FIELD, jp)
-            _JAX_G2_DOUBLINGS[j] = jp
-    return _JAX_G2_DOUBLINGS
+def _jax_doublings(group: str, upto: int):
+    """2^j P for j = 0..upto by the JAX package's jnp double over the
+    group's field, on the test lanes (infinity among them), computed once."""
+    if group not in _JAX_DOUBLINGS:
+        jfield, jenc = GROUPS[group][2:4]
+        _ops, ps, _qs = _lanes(group)
+        jp = jcv.double(jfield, jenc(ps))  # Jacobian, Z != 1
+        out = [jp]
+        for _ in range(upto):
+            jp = jcv.double(jfield, jp)
+            out.append(jp)
+        _JAX_DOUBLINGS[group] = out
+    return _JAX_DOUBLINGS[group]
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("k", [1, 4, 8])
-def test_g2_k_fold_double_matches_k_jax_doubles(k):
-    jd = _jax_g2_doublings(8)
-    start = _jax_to_port(jd[0], "g2")
+def test_g2_k_fold_double_matches_k_jax_doubles(k, group):
+    """One k-fold double (one kernel launch on the card) against k doublings
+    of the JAX package, for both groups."""
+    jd = _jax_doublings(group, 8)
+    start = _jax_to_port(jd[0], group)
     got = tcv.double(start, k)
     assert torch.equal(got.data, tcv.double_plain(start, k).data)
-    assert torch.equal(got.data, _jax_to_port(jd[k], "g2").data)
-    ops, ps, _qs = _lanes("g2")
+    assert torch.equal(got.data, _jax_to_port(jd[k], group).data)
+    ops, ps, _qs = _lanes(group)
     want = [ops.double(p) for p in ps]
     for _ in range(k):
         want = [ops.double(p) for p in want]
-    assert tcv.g2_decode(got) == want
+    assert GROUPS[group][5](got) == want
     assert want[3] is None  # the infinity lane stays infinity
 
 
 def test_g2_team_header_is_generated_from_the_programs():
-    from spartan_tpu_torch.ops import g2_team
+    from spartan_tpu_torch.ops import team
 
-    assert g2_team.HEADER.read_text() == g2_team.emit_header()
+    text = team.HEADER.read_text()
+    assert text == team.emit_header()
+    for g in team.GROUPS.values():  # every program of both groups has its tables
+        for name in g.programs:
+            for table in ("END", "OPS"):
+                assert f"{g.prefix}_{name}_{table}[" in text
+    assert "G1T_ADD_CHECK[2]" in text and "G2T_ADD_CHECK[4]" in text
 
 
 def _coords(batch, lane):
@@ -184,7 +195,7 @@ def _coords(batch, lane):
 def test_g2_team_programs_match_plain_formulas(op):
     """The stage programs the team kernels run, with the kernel's edge rules,
     on every test lane (P + Q, P + P, P + (-P), inf + P, P + inf)."""
-    from spartan_tpu_torch.ops import g2_team
+    from spartan_tpu_torch.ops import team
 
     ops, ps, qs = _lanes("g2")
     qs2 = list(qs)
@@ -194,8 +205,8 @@ def test_g2_team_programs_match_plain_formulas(op):
     want = tcv.add_plain(tp, tq) if op == "add" else tcv.double_plain(tp, 3)
     for lane in range(tp.n):
         pc = _coords(tp, lane)
-        got = g2_team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
-            g2_team.team_double(pc, 3, hf.P)
+        got = team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
+            team.team_double(pc, 3, hf.P)
         assert got == _coords(want, lane), lane
 
 
@@ -204,7 +215,7 @@ def test_g2_team_madd_program_matches_plain_and_jax():
     curve.add_mixed_plain and the JAX package's add_mixed over G2_FIELD:
     P + Q, P + P, P + (-P), inf + Q, P + inf, with P Jacobian (Z != 1) and
     Q affine."""
-    from spartan_tpu_torch.ops import g2_team
+    from spartan_tpu_torch.ops import team
 
     ops, ps, qs = _lanes("g2")
     base = [ops.double(p) for p in ps]
@@ -217,7 +228,40 @@ def test_g2_team_madd_program_matches_plain_and_jax():
     assert torch.equal(_jax_to_port(jcv.add_mixed(jcv.G2_FIELD, jp, jcv.g2_encode(qs2)), "g2").data,
                        want.data)
     for lane in range(tp.n):
-        got = g2_team.team_add(_coords(tp, lane), _coords(tq, lane), hf.P, "MADD")
+        got = team.team_add(_coords(tp, lane), _coords(tq, lane), hf.P, "MADD")
         assert got == _coords(want, lane), lane
     assert tcv.g2_decode(want) == [ops.add(p, q) for p, q in zip(base, qs2)]
     assert tcv.g2_decode(want)[2] is None
+
+
+@pytest.mark.parametrize("op", ["add", "double"])
+def test_g1_team_programs_match_plain_and_jax(op):
+    """The G1 stage programs (run by team_add / team_double over p = the Fp
+    modulus), with the kernel's edge rules, against curve.add_plain /
+    double_plain and the JAX package's add / double over G1_FIELD, on
+    P + Q, P + P, P + (-P), inf + Q and P + inf with P and Q Jacobian
+    (Z != 1)."""
+    from spartan_tpu_torch.ops import team
+
+    ops, ps, qs = _lanes("g1")
+    qs2 = list(qs)
+    qs2[1] = ps[1]  # 2P + 2P: the doubling rule
+    jp, jq = (jcv.double(jcv.G1_FIELD, jcv.g1_encode(x)) for x in (ps, qs2))
+    tp, tq = tcv.double(tcv.g1_encode(ps)), tcv.double(tcv.g1_encode(qs2))
+    if op == "add":
+        want = tcv.add_plain(tp, tq)
+        jr = jcv.add(jcv.G1_FIELD, jp, jq)
+        host = [ops.add(ops.double(p), ops.double(q)) for p, q in zip(ps, qs2)]
+    else:
+        want = tcv.double_plain(tp, 2)
+        jr = jcv.double(jcv.G1_FIELD, jcv.double(jcv.G1_FIELD, jp))
+        host = [ops.double(ops.double(ops.double(p))) for p in ps]
+    assert torch.equal(_jax_to_port(jr, "g1").data, want.data)
+    assert tcv.g1_decode(want) == host
+    for lane in range(tp.n):
+        pc = _coords(tp, lane)
+        got = team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
+            team.team_double(pc, 2, hf.P)
+        assert got == _coords(want, lane), lane
+    if op == "add":
+        assert host[2] is None and host[3] == ops.double(qs2[3]) and host[4] == ops.double(ps[4])

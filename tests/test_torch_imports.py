@@ -98,11 +98,12 @@ def test_kernels_match_plain_on_card():
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
-    old = chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS
+    old = chip_smoke.TIMED_LANES, chip_smoke.G1_WIDTHS, chip_smoke.G2_WIDTHS
     chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS = 1 << 10, (8, 1 << 10)
+    chip_smoke.G1_WIDTHS = {"add": (1, 1 << 10), "double": (1, 1 << 10)}
     try:
         rows = chip_smoke.phase_kernels(torch.device("cuda", 0), chip_smoke.Card())
     finally:
-        chip_smoke.TIMED_LANES, chip_smoke.G2_WIDTHS = old
+        chip_smoke.TIMED_LANES, chip_smoke.G1_WIDTHS, chip_smoke.G2_WIDTHS = old
     assert {r["name"] for r in rows} == set(kernels.KERNELS)
     assert all(r["max_abs_err"] == 0 for r in rows)

@@ -7,7 +7,7 @@
 // The entry points pick the team size by lane count, from measurements on
 // the H100 (chip_smoke.py phase 2, PERF.md): 8 threads a point while the
 // card has lanes to spare, fewer as the points fill it. A single doubling
-// of many points runs PR 1's one-thread kernel (g1_ops.cu), which measured
+// of many points runs the one-thread kernel (g1_ops.cu), which measured
 // faster there than every team size. The *_team entry points take the team
 // size, for those measurements; the prover never calls them.
 #include "team.cuh"

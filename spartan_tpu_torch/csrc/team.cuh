@@ -14,7 +14,7 @@
 // the point (point.cuh): 7 for a G1 double, 16 for a G1 add or a G2
 // double, 44 for a G2 add, each a 288-product CIOS chain. At tens of
 // thousands of points, and at the mixed add's 1 M points, they are bound by
-// 32-bit multiply issue (2 IMADs per 32x32->64 product, 64 IMADs per SM
+// 32-bit multiply throughput (2 IMADs per 32x32->64 product, 64 IMADs per SM
 // per clock).
 //
 // What the design does about it. The formulas are written as stages of

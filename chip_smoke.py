@@ -187,12 +187,11 @@ LANE_BYTES = {
 # at (phase 4 prints them): the commit MSM's Horner step (1 lane), its
 # weighted reduce (32 windows up to 2,048 = 32 x 64 bucket pairs) and its
 # bucket sums (2,047 to 521,701, the widest launch), and 2^16. The double:
-# the prove's widths (1 lane with k = 8, 32 with k = 1), 2,048, 2^16, and
-# between them those where g1_team.cu changes team size or kernel.
+# the prove's widths (1 lane with k = 8, 32 with k = 1), 2,048 and 2^16.
 G1_ADD_WIDEST = 521_701
 G1_WIDTHS = {"add": (1, 32, 64, 128, 256, 512, 1024, 2047, 2048, 4069, 8137, 16_305, 32_607,
                      65_220, 1 << 16, 130_410, 260_855, G1_ADD_WIDEST),
-             "double": (1, 32, 2048, 8192, 16_384, 32_768, 1 << 16)}
+             "double": (1, 32, 2048, 1 << 16)}
 G1_KS = {1: (1, 8), 32: (1, 8)}  # k = 1 elsewhere
 # G2 add and double widths: the openings' Horner steps (7-9 lanes), the
 # weighted reduce (224 = 7 levels x 32 windows up to 28,672 = x 128 buckets),

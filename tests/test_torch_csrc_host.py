@@ -114,11 +114,8 @@ def host_csrc(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("src", ["fp_ops.cu", "fr_ops.cu", "g1_ops.cu", "g1_team.cu", "g2_ops.cu",
-                                 "g2_team.cu"])
+@pytest.mark.parametrize("src", sorted(p.name for p in CSRC.glob("*.cu")))
 def test_kernel_source_parses_as_host_cpp(host_csrc, src):
-    assert sorted(p.name for p in CSRC.glob("*.cu")) == [
-        "fp_ops.cu", "fr_ops.cu", "g1_ops.cu", "g1_team.cu", "g2_ops.cu", "g2_team.cu"]
     out = subprocess.run(["g++", "-x", "c++", "-std=c++20", "-fsyntax-only", "-D__CUDACC__",
                           "-include", str(host_csrc / "stubs.h"), f"-I{host_csrc}",
                           str(host_csrc / src)], capture_output=True, text=True)

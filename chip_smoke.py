@@ -16,9 +16,15 @@ exits non-zero:
    (k = 1, 8 at 1 and 32), the G2 add and double at their widths (8 to
    2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16) and the G2 mixed add at
    8, 4,096, 2^16 and 1,029,085 lanes, beside their one-thread versions and
-   every team size; the Fp inversion at 1, 16 and 4,096 lanes beside its
-   one-thread version and the fp_mul chain it replaced; nvidia-smi's
-   clocks.sm sampled;
+   every team size; the G1 mixed add at 2,048, 2^16 and 1,043,405 lanes
+   (the prove's one launch) at every team size beside PR 1's one-thread
+   kernel and the one-thread kernel on the carry flag; the Fp inversion at
+   1, 16 and 4,096 lanes beside its one-thread version and the fp_mul chain
+   it replaced; the field kernels' device time (a CUDA graph of 20 launches
+   replayed between CUDA events) at 2^16 lanes and at the prove's most
+   launched shape, and fr_mul's at the prove's widths beside its version
+   before the carry flag and every block size; nvidia-smi's clocks.sm
+   sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
    ``tests/fixtures/proof_2e5_seed3.bin``;
@@ -26,6 +32,7 @@ exits non-zero:
    0; setup -> index -> prove -> verify, each timed; verify must accept,
    and reject a proof with one opening byte changed and a wrong public
    input; every kernel entry point must have launched during the run;
+   fr_mul's device time summed over the prove's shapes, from phase 2;
 5. five warm proves, then one under torch.profiler (device time by
    kernel, the card's busy and idle share).
 
@@ -112,6 +119,23 @@ def direct(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()):
         check(rc == 0, f"{name}: cudaGetLastError() = {rc}")
 
     return call
+
+
+def graph_ms(name: str, out: torch.Tensor, *ins: torch.Tensor, args=(), launches: int = 20) -> float:
+    """Device milliseconds a launch of entry point ``name``: a CUDA graph of
+    ``launches`` direct calls replayed between CUDA events, so that the
+    host's issue rate is not in it. It counts no launch."""
+    from spartan_tpu_torch import kernels
+
+    fn = getattr(kernels.load(), "spk_" + name)
+    ptrs = [t.data_ptr() for t in ins] + [out.data_ptr()]
+    n = out.shape[-1]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        rcs = [fn(*ptrs, n, *args, stream) for _ in range(launches)]
+    check(not any(rcs), f"{name}: cudaGetLastError() = {max(rcs)} while captured")
+    return cuda_ms(graph.replay, 5) / launches
 
 
 class Card:
@@ -201,7 +225,20 @@ G2_KS = {8: (1, 4, 8), 28_672: (1, 4, 8), 1 << 16: (1, 4, 8)}  # k = 1 elsewhere
 # G2 mixed add widths: small, 4,096, 2^16 and the openings' first bucket
 # level at 2^16 (the widest launch of the prove)
 G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
+# G1 mixed add widths: the prove's one launch (the commit MSM's first bucket
+# level), 2^16 and 2,048
+G1_MADD_WIDTHS = (2048, 1 << 16, 1_043_405)
 TEAMS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}  # team sizes each group's kernels take
+TEAMS_OF = {"g1_madd": (1, 2, 4)}  # a kernel's own, where they differ from its group's
+EXTRA_VERSIONS = {"g1_madd": ("thread_cc",)}  # yardstick spk_<name>_<label>, one thread a point
+# the field kernels' most launched shape in the 2^16 prove (phase 4 prints them)
+FIELD_SHAPES = {"fr_mul": 32_768, "fr_add": 1 << 16, "fr_sub": 1, "fp_mul": 48, "fp_add": 16,
+                "fp_sub": 32}
+# every width the 2^16 prove launches fr_mul at (phase 4 prints them)
+FR_MUL_WIDTHS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024,
+                 1536, 2048, 3072, 4096, 6144, 8192, 12_288, 16_384, 24_576, 32_768, 49_152,
+                 65_532, 1 << 16, 98_304, 163_829, 196_596)
+FR_MUL_BLOCKS = (32, 64, 128, 256, 512)  # threads a block
 FP_INV_LANES = (1, 16, 4096)  # the prover inverts 1 lane at a time
 
 
@@ -328,8 +365,13 @@ def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
                     "add": [(x + y) % m for x, y in zip(xs, ys)],
                     "sub": [(x - y) % m for x, y in zip(xs, ys)]}[op]
             check(ints == host, f"{name}: first lanes disagree with Python integers")
-            record(name, got, want, direct(name, torch.empty_like(a), a, b),
-                   lambda: plain(spec, a, b), PRODUCTS.get(name, 0) * n, LANE_BYTES[name] * n)
+            row = record(name, got, want, direct(name, torch.empty_like(a), a, b),
+                         lambda: plain(spec, a, b), PRODUCTS.get(name, 0) * n, LANE_BYTES[name] * n)
+            _field_device(card, row, a, b)
+            if name == "fr_mul":
+                wa, wb = (_random_field(spec, max(FR_MUL_WIDTHS), rng, dev) for _ in range(2))
+                row["widths"] = [_fr_mul_width(card, lanes, wa[:, :lanes].contiguous(),
+                                               wb[:, :lanes].contiguous()) for lanes in FR_MUL_WIDTHS]
 
     for group in ("g1", "g2"):
         ops = hc.G1 if group == "g1" else hc.G2
@@ -369,8 +411,54 @@ def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
     sweep("g2", "add", G2_WIDTHS, {})
     sweep("g2", "double", G2_WIDTHS, G2_KS)
     sweep("g2", "madd", G2_MADD_WIDTHS, {})
+    sweep("g1", "madd", G1_MADD_WIDTHS, {})
     rows.append(_fp_inv_row(card, rng, dev))
     return rows
+
+
+def _field_device(card: Card, row: dict, a: torch.Tensor, b: torch.Tensor) -> None:
+    """A field kernel's device time at the row's 2^16 lanes and at the
+    prove's most launched shape (the first lanes of a and b), beside the
+    bound there; fr_mul's also beside its version before the carry flag."""
+    name = row["name"]
+    lanes = min(FIELD_SHAPES[name], a.shape[1])
+    a1, b1 = a[:, :lanes].contiguous(), b[:, :lanes].contiguous()
+    row["device_ms"] = graph_ms(name, torch.empty_like(a), a, b)
+    row["shape"] = {"lanes": lanes, "device_ms": graph_ms(name, torch.empty_like(a1), a1, b1),
+                    "bound_ms": card.bound(PRODUCTS.get(name, 0) * lanes, LANE_BYTES[name] * lanes)[0]}
+    line = (f"field {name:7s} device ms (CUDA graph of 20): lanes={a.shape[1]} {row['device_ms']:.5f} "
+            f"(bound {row['bound_ms']:.5f}, direct calls {row['ms']:.5f}); lanes={lanes} "
+            f"{row['shape']['device_ms']:.5f} (bound {row['shape']['bound_ms']:.2e})")
+    if name == "fr_mul":
+        row["sum64_device_ms"] = graph_ms("fr_mul_sum64", torch.empty_like(a), a, b)
+        row["shape"]["sum64_device_ms"] = graph_ms("fr_mul_sum64", torch.empty_like(a1), a1, b1)
+        line += (f"; before the carry flag {row['sum64_device_ms']:.5f} and "
+                 f"{row['shape']['sum64_device_ms']:.5f}")
+    print(line, flush=True)
+
+
+def _fr_mul_width(card: Card, lanes: int, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """fr_mul at ``lanes`` lanes: the entry point, its version before the
+    carry flag (field.cuh's product) and the carry-flag product at every
+    block size, each bit-exact against the plain version, by device time."""
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops.field import FR
+
+    want = fo.mont_mul_plain(FR, a, b)
+    versions = [("entry", "fr_mul", ()), ("sum64", "fr_mul_sum64", ()), ("serial", "fr_mul_serial", ())]
+    versions += [(f"block{t}", "fr_mul_block", (t,)) for t in FR_MUL_BLOCKS]
+    row = {"lanes": lanes}
+    for label, name, args in versions:
+        out = torch.zeros_like(a)
+        direct(name, out, a, b, args=args)()
+        check(torch.equal(out, want), f"fr_mul lanes={lanes} {label}: disagrees with the plain version")
+        row["device_ms" if label == "entry" else f"{label}_device_ms"] = graph_ms(name, out, a, b, args=args)
+    row["bound_ms"], row["bound_by"] = card.bound(PRODUCTS["fr_mul"] * lanes, LANE_BYTES["fr_mul"] * lanes)
+    print(f"fr_mul lanes={lanes} bit-exact, device ms: entry {row['device_ms']:.5f}  before the carry "
+          f"flag {row['sum64_device_ms']:.5f}  serial {row['serial_device_ms']:.5f}  "
+          + "  ".join(f"block {t} {row[f'block{t}_device_ms']:.5f}" for t in FR_MUL_BLOCKS)
+          + f"  bound {row['bound_ms']:.2e} ({row['bound_by']})", flush=True)
+    return row
 
 
 def _team_versions(name: str, ins, k: int, teams) -> list:
@@ -385,6 +473,9 @@ def _team_versions(name: str, ins, k: int, teams) -> list:
     for team in teams:
         out = new()
         versions.append((f"team{team}", direct(f"{name}_team", out, *ins, args=args + (team,)), out))
+    for label in EXTRA_VERSIONS.get(name, ()):
+        out = new()
+        versions.append((label, direct(f"{name}_{label}", out, *ins), out))
     if not double:
         out = new()
         versions.append(("onethread", direct(f"{name}_onethread", out, *ins), out))
@@ -420,7 +511,8 @@ def _team_width(card: Card, group: str, op: str, lanes: int, k: int, rng, dev) -
             products = _add_products(op, p, q2)
         want = plain_fn().data
         check(torch.equal(got, want), f"{label}: kernel disagrees with its plain version ({n} lanes)")
-        versions = _team_versions(name, ins, k, TEAMS[group])
+        teams = TEAMS_OF.get(name, TEAMS[group])
+        versions = _team_versions(name, ins, k, teams)
         for what, call, out in versions:
             out.zero_()
             call()
@@ -431,7 +523,8 @@ def _team_width(card: Card, group: str, op: str, lanes: int, k: int, rng, dev) -
     row["plain_ms"] = cuda_ms(plain_fn, 1 if lanes > 1 << 17 else 2 if lanes > 1024 else 5)
     row["bound_ms"], row["bound_by"] = card.bound(products, LANE_BYTES[name] * lanes)
     print(f"{label} bit-exact (entry, teams, one-thread): entry {row['ms']:.4f} ms  "
-          + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in TEAMS[group])
+          + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in teams)
+          + "".join(f"  {x} {row[f'{x}_ms']:.4f}" for x in EXTRA_VERSIONS.get(name, ()))
           + f"  one-thread {row['onethread_ms']:.4f}  plain {row['plain_ms']:.3f}  "
           f"bound {row['bound_ms']:.2e} ms ({row['bound_by']})", flush=True)
     return row
@@ -572,10 +665,11 @@ def phase_full(dev, card: Card, log_n: int = 16):
     print("full: prove doublings " + json.dumps(prove_doublings), flush=True)
     print("full: prove [[lanes, (k)], launches], most launched first " + json.dumps(prove_widths),
           flush=True)
-    for k in ("g1_add", "g1_double"):  # every shape the prove launched them at, widest first
+    shapes = {}  # every shape the prove launched them at, widest first
+    for k in ("g1_add", "g1_double", "fr_mul"):
         diff = {key: m - before[2].get(k, {}).get(key, 0) for key, m in kernels.LANES[k].items()}
-        print(f"full: prove {k} [[lanes, (k)], launches], all, widest first "
-              + json.dumps(sorted(([list(key), m] for key, m in diff.items() if m), reverse=True)),
+        shapes[k] = sorted(([list(key), m] for key, m in diff.items() if m), reverse=True)
+        print(f"full: prove {k} [[lanes, (k)], launches], all, widest first " + json.dumps(shapes[k]),
               flush=True)
     bounds = {}  # the bound of one launch at the most launched shape; every lane counted
     for k, top in prove_widths.items():
@@ -600,7 +694,7 @@ def phase_full(dev, card: Card, log_n: int = 16):
     wrong_v[0] = (wrong_v[0] + 1)
     how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), wrong_v, proof, vp))
     print(f"full: wrong public input -> {how}", flush=True)
-    return launches, lambda: MLArgumentForR1CS.prove(pk, v, w, pp)
+    return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp)
 
 
 def phase_profile(prove, warm: int = 5) -> None:
@@ -669,13 +763,29 @@ def _entry_point(kernel: str):
         return m.group(1).lower() + "_" + ("double", "add", "madd")[int(m.group(2))]
     if re.search(r"inv_(warp|thread)_kernel", kernel):
         return "fp_inv"
-    m = re.search(r"pt_kernel<(Fe<FpParams>|Fp2), (\d)>", kernel)
+    m = re.search(r"pt_kernel<(Fe<FpParams>|FpC|Fp2), (\d)", kernel)
     if m:
-        return ("g1_" if m.group(1).startswith("Fe") else "g2_") + ("madd", "add", "double")[int(m.group(2))]
+        return ("g2_" if m.group(1) == "Fp2" else "g1_") + ("madd", "add", "double")[int(m.group(2))]
+    if "fe_mul_cc_kernel<FrParams>" in kernel:
+        return "fr_mul"
     m = re.search(r"fe_binary_kernel<(Fr|Fp)Params, (\d)>", kernel)
     if m:
         return m.group(1).lower() + "_" + ("mul", "add", "sub")[int(m.group(2))]
     return None
+
+
+def _fr_mul_in_prove(rows: list, shapes: list) -> None:
+    """fr_mul's device time in the prove, summed over its shapes (lanes,
+    launches) from phase 2's table, for fr_mul and its version before the
+    carry flag, beside the sum of the bounds."""
+    table = {w["lanes"]: w for w in next(r for r in rows if r["name"] == "fr_mul")["widths"]}
+    hit = [(lanes, m) for (lanes,), m in shapes if lanes in table]
+    total = {k: sum(m * table[lanes][k] for lanes, m in hit)
+             for k in ("device_ms", "sum64_device_ms", "bound_ms")}
+    print(f"full: fr_mul in the prove by phase 2's device times, {sum(m for _l, m in hit)} of "
+          f"{sum(m for _s, m in shapes)} launches at timed widths: {total['device_ms']:.4f} ms, "
+          f"before the carry flag {total['sum64_device_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms",
+          flush=True)
 
 
 def main() -> int:
@@ -690,9 +800,13 @@ def main() -> int:
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s (nvcc {build_s:.1f} s)",
           flush=True)
     print(card_line(), flush=True)  # name, power limit: as nvidia-smi gives them
+    entry = ""  # the kernel ptxas reports on, as its mangled name
     for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"ptxas: {line.strip()}", flush=True)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line or line.startswith("=="):
+            print(f"ptxas: {entry[:72]}: {line.strip()}", flush=True)
 
     card = Card()
     with ClockSampler() as clocks:
@@ -700,7 +814,8 @@ def main() -> int:
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
-    launches, prove = phase_full(dev, card)
+    launches, shapes, prove = phase_full(dev, card)
+    _fr_mul_in_prove(rows, shapes["fr_mul"])
     phase_profile(prove)
     for row in rows:
         row["launches"] = launches[row["name"]]

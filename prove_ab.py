@@ -6,12 +6,13 @@ Each round runs A, B, B, A, every run in a process of its own that imports
 ``spartan_tpu_torch`` from its directory (each checkout builds its kernels
 once, into its own ``spartan_tpu_torch/build``). A run takes the circuit
 of chip_smoke.py's phase 4 (log_n = 16, density 0, circuit seed 0, key
-seed 42) from this script's checkout, sets up and indexes on the card, then
-proves once cold and five times warm, and times the decode to affine of one
+seed 42) from this script's checkout, sets up twice (the second one warm:
+keygen's fixed-base MSM runs the point kernels) and indexes on the card,
+then proves once cold and five times warm, and times the decode to affine of one
 G1 point (the commitment's) and of 16 G2 points (an opening's at 2^16), host
 included: each decode inverts once. It prints one JSON line per run and, at
-the end, the medians of each side: warm prove wall, the SPANS below, and the
-decode walls.
+the end, the medians of each side: warm prove wall, the SPANS below, the
+warm setup and the decode walls.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import subprocess
 import sys
 import time
 
-SPANS = ("commit MSM", "open G2 MSMs")  # timers spans whose medians are reported
+# timers spans whose medians are reported
+SPANS = ("commit MSM", "open G2 MSMs", "Prove Sumcheck 1", "Prove Sumcheck 2")
 
 
 def child(root: str) -> None:
@@ -46,13 +48,20 @@ def child(root: str) -> None:
 
     kernels.load()
     dev = torch.device("cuda", 0)
-    key_rng = random.Random(42)
+    class Keys:  # the same keys at every setup
+        def __init__(self):
+            self.rng = random.Random(42)
 
-    class Keys:
         def sample_fr(self):
-            return key_rng.randrange(0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001)
+            return self.rng.randrange(0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001)
 
-    pp, _vp = MLArgumentForR1CS.setup(log_n, Keys(), dev)
+    setup_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pp, _vp = MLArgumentForR1CS.setup(log_n, Keys(), dev)
+        torch.cuda.synchronize()
+        setup_s.append(time.perf_counter() - t)
     pk = MLArgumentForR1CS.index(a, b, c, dev)
     walls, spans = [], []
     for _ in range(6):
@@ -75,7 +84,7 @@ def child(root: str) -> None:
         return (time.perf_counter() - t) / reps * 1e3
 
     g1, g2 = pp.powers_of_g[0].take(slice(0, 1)), pp.powers_of_h[0].take(slice(0, 16))
-    print(json.dumps({"root": root, "cold_s": walls[0], "warm_s": walls[1:],
+    print(json.dumps({"root": root, "setup_s": setup_s, "cold_s": walls[0], "warm_s": walls[1:],
                       "spans_s": spans[1:],
                       "g1_decode_1_ms": wall_ms(lambda: cv.g1_decode(g1)),
                       "g2_decode_16_ms": wall_ms(lambda: cv.g2_decode(g2))}), flush=True)
@@ -102,10 +111,11 @@ def main() -> int:
         span = {k: statistics.median(x[k] for r in runs[side] for x in r["spans_s"]) for k in SPANS}
         dec = {k: statistics.median(r[k] for r in runs[side])
                for k in ("g1_decode_1_ms", "g2_decode_16_ms")}
+        setup = statistics.median(r["setup_s"][1] for r in runs[side])
         print(f"{side} {roots[side]}: warm prove median {statistics.median(warm):.4f} s "
               f"(min {min(warm):.4f}, max {max(warm):.4f}, {len(warm)} proves); span medians "
               + ", ".join(f"{k} {s:.4f} s" for k, s in span.items())
-              + f"; decode ms, median of runs: G1 x1 "
+              + f"; warm setup median {setup:.4f} s; decode ms, median of runs: G1 x1 "
               f"{dec['g1_decode_1_ms']:.3f}, G2 x16 {dec['g2_decode_16_ms']:.3f}; cold "
               + ", ".join(f"{r['cold_s']:.3f}" for r in runs[side]), flush=True)
     return 0

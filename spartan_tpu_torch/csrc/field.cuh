@@ -9,11 +9,17 @@
 //
 // What bounds this on an H100: integer multiply-add issue. A CIOS multiply is
 // 2 N^2 32x32->64 products (128 for Fr, 288 for Fp) with a carry chain that
-// the compiler lowers to mad.lo/mad.hi pairs. The design keeps every operand
-// in registers (limb counts are compile-time constants, loops fully unrolled),
-// does one exact carry chain per product row and a single conditional
-// subtract at the end, and reads the modulus from constant memory, which is
-// uniform across a warp.
+// the compiler lowers to mad.lo/mad.hi pairs, and each carry is built from a
+// 64-bit sum: two dependent instructions a limb. The design keeps every
+// operand in registers (limb counts are compile-time constants, loops fully
+// unrolled), does one exact carry chain per product row and a single
+// conditional subtract at the end, and reads the modulus from constant
+// memory, which is uniform across a warp.
+//
+// This file's product runs fp_mul (fp_ops.cu) and the yardsticks (PR 1's
+// one-thread point kernels, fr_mul_sum64); fr_mul and the team point kernels
+// run fp_cc.cuh's product on the carry flag, one instruction a limb. The
+// adds and subtracts run the Fr and Fp field kernels.
 #pragma once
 
 #include <cstdint>

@@ -12,6 +12,7 @@ static __constant__ uint32_t SPK_FP_MOD[12] = {
 struct FpParams {
   static constexpr int N = 12;
   static constexpr uint32_t INV = 0xfffcfffdu;  // -p^-1 mod 2^32
+  static constexpr uint32_t TOP = 0x1a0111eau;  // the top limb, SPK_FP_MOD[11]
   static __device__ __forceinline__ uint32_t mod(int i) { return SPK_FP_MOD[i]; }
 };
 

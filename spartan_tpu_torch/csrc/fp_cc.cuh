@@ -1,10 +1,12 @@
-// Fp arithmetic on the PTX carry flag (add.cc, mad.lo.cc, madc.hi.cc):
-// field.cuh's CIOS product and its canonical add and subtract, one
-// instruction a limb where field.cuh's 64-bit sums take two dependent ones.
-// Same results; faster at every width measured on the H100 (PERF.md). Used by the
-// team point kernels (team.cuh) and the one-thread Fermat inversion
-// (fp_ops.cu). The host branch runs the same code on a software carry flag,
-// for the host pass of nvcc and for g++.
+// Field arithmetic on the PTX carry flag (add.cc, mad.lo.cc, madc.hi.cc):
+// field.cuh's CIOS product, written once over the limb count, and Fp's
+// canonical add and subtract, one instruction a limb where field.cuh's 64-bit
+// sums take two dependent ones. Same results; faster at every width
+// measured on the H100 (PERF.md). The product runs Fr's fr_mul (fr_ops.cu),
+// and over Fp the team point kernels (team.cuh), the one-thread G1 mixed add
+// (point.cuh) and the one-thread Fermat inversion (fp_ops.cu). The host
+// branch runs the same code on a software carry flag, for the host pass of
+// nvcc and for g++.
 #pragma once
 
 #include "fp.cuh"
@@ -41,6 +43,9 @@ __device__ __forceinline__ uint32_t madhi_cc(uint32_t a, uint32_t b, uint32_t c)
 __device__ __forceinline__ uint32_t madchi_cc(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t r; SPK_CC("madc.hi.cc.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
 }
+__device__ __forceinline__ uint32_t madchi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r; SPK_CC("madc.hi.u32 %0, %1, %2, %3;", "=r"(r) : "r"(a), "r"(b), "r"(c)); return r;
+}
 #undef SPK_CC
 #else  // the carry flag on the host, where the device code is compiled for tests
 inline thread_local uint32_t spk_cf;
@@ -62,6 +67,9 @@ inline uint32_t madhi_cc(uint32_t a, uint32_t b, uint32_t c) {
 }
 inline uint32_t madchi_cc(uint32_t a, uint32_t b, uint32_t c) {
   return cc_set((((uint64_t)a * b) >> 32) + c + spk_cf);
+}
+inline uint32_t madchi(uint32_t a, uint32_t b, uint32_t c) {
+  return (uint32_t)(((uint64_t)a * b) >> 32) + c + spk_cf;
 }
 #endif
 
@@ -93,46 +101,149 @@ __device__ __forceinline__ Fp fp_sub_cc(const Fp& a, const Fp& b) {
   return borrow ? e : d;
 }
 
-// a * b * 2^-384 mod p: CIOS as in field.cuh, each row's low and high
-// halves added along the carry flag.
-__device__ __forceinline__ Fp fp_mul_cc(const Fp& a, const Fp& b) {
-  constexpr int N = FpParams::N;
-  uint32_t t[N + 2];
+// a * b * 2^(-32N) mod m for canonical a, b < m: CIOS as in field.cuh, each
+// row's low and high halves added along the carry flag.
+//
+// field.cuh keeps N + 2 words of t. Here N + 1 do, because the modulus's top
+// bit is clear (m < 2^(32N-1): Fr's top limb is 0x73eda753, Fp's
+// 0x1a0111ea; P::TOP, checked below): a row starts from t < 2m and adds
+// a * b_i < 2^32 m and q * m < 2^32 m, so every partial sum stays below
+// 2^33 m < 2^(32N+32), the extra top word t[N+1] is always 0 and the last
+// add of each half needs no carry out. After the last row t < 2m < 2^(32N),
+// so one conditional subtract over N words makes it canonical.
+template <class P>
+__device__ __forceinline__ Fe<P> fe_mul_serial(const Fe<P>& a, const Fe<P>& b) {
+  constexpr int N = P::N;
+  static_assert(P::TOP < 0x80000000u, "fe_mul_serial needs the modulus's top bit clear");
+  uint32_t t[N + 1];
 #pragma unroll
-  for (int i = 0; i < N + 2; ++i) t[i] = 0u;
+  for (int i = 0; i < N + 1; ++i) t[i] = 0u;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const uint32_t bi = b.v[i];
     t[0] = madlo_cc(a.v[0], bi, t[0]);
 #pragma unroll
     for (int j = 1; j < N; ++j) t[j] = madclo_cc(a.v[j], bi, t[j]);
-    t[N] = addc_cc(t[N], 0u);
-    t[N + 1] = addc(t[N + 1], 0u);
+    t[N] = addc(t[N], 0u);
     t[1] = madhi_cc(a.v[0], bi, t[1]);
 #pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = madchi_cc(a.v[j], bi, t[j + 1]);
-    t[N + 1] = addc(t[N + 1], 0u);
+    for (int j = 1; j < N - 1; ++j) t[j + 1] = madchi_cc(a.v[j], bi, t[j + 1]);
+    t[N] = madchi(a.v[N - 1], bi, t[N]);
 
-    const uint32_t m = t[0] * FpParams::INV;
-    t[0] = madlo_cc(m, FpParams::mod(0), t[0]);  // 0, and a carry
+    const uint32_t m = t[0] * P::INV;
+    t[0] = madlo_cc(m, P::mod(0), t[0]);  // 0, and a carry
 #pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = madclo_cc(m, FpParams::mod(j), t[j]);
-    t[N] = addc_cc(t[N], 0u);
-    t[N + 1] = addc(t[N + 1], 0u);
-    t[1] = madhi_cc(m, FpParams::mod(0), t[1]);
+    for (int j = 1; j < N; ++j) t[j] = madclo_cc(m, P::mod(j), t[j]);
+    t[N] = addc(t[N], 0u);
+    t[1] = madhi_cc(m, P::mod(0), t[1]);
 #pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = madchi_cc(m, FpParams::mod(j), t[j + 1]);
-    t[N + 1] = addc(t[N + 1], 0u);
+    for (int j = 1; j < N - 1; ++j) t[j + 1] = madchi_cc(m, P::mod(j), t[j + 1]);
+    t[N] = madchi(m, P::mod(N - 1), t[N]);
 #pragma unroll
-    for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];  // divide by 2^32
-    t[N + 1] = 0u;
+    for (int j = 0; j < N; ++j) t[j] = t[j + 1];  // divide by 2^32
+    t[N] = 0u;
   }
-  Fp r, d;  // t < 2p: subtract p once if t >= p
+  Fe<P> r, d;  // t < 2m: subtract m once if t >= m
 #pragma unroll
   for (int k = 0; k < N; ++k) r.v[k] = t[k];
-  d.v[0] = sub_cc(t[0], FpParams::mod(0));
+  d.v[0] = sub_cc(t[0], P::mod(0));
 #pragma unroll
-  for (int k = 1; k < N; ++k) d.v[k] = subc_cc(t[k], FpParams::mod(k));
-  const uint32_t borrow = subc(t[N], 0u);  // 0xffffffff when t < p
+  for (int k = 1; k < N; ++k) d.v[k] = subc_cc(t[k], P::mod(k));
+  const uint32_t borrow = subc(0u, 0u);  // 0xffffffff when t < m
   return borrow ? r : d;
+}
+
+// The same product with two accumulators, after the even/odd split of
+// sppark's mont_t: the products a_j b_i of even j fill words j, j + 1 of one
+// array with no carry between them, those of odd j another array one word
+// up, so each row runs two carry chains that do not depend on each other
+// and the compiler can interleave them. T = x + y 2^32, x N words from word
+// 0, y N words from word 1; after a row's reduction x[0] = 0 and T / 2^32 =
+// (y + x[1]) + (x >> 64) 2^32, so the arrays swap roles every row (N even).
+// The bound above keeps y < 2^(32N), so a chain into y needs no carry out.
+namespace eo {
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+// acc[j], acc[j + 1] = a[j] * bi for even j < n (a is read at stride 1)
+template <int N>
+__device__ __forceinline__ void mul_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    acc[j] = a[j] * bi;
+    acc[j + 1] = mul_hi(a[j], bi);
+  }
+}
+// acc += sum over even j of a[j] * bi 2^(32j); the carry out stays in the flag
+template <int N>
+__device__ __forceinline__ void cmad_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+  acc[0] = madlo_cc(a[0], bi, acc[0]);
+  acc[1] = madchi_cc(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = madclo_cc(a[j], bi, acc[j]);
+    acc[j + 1] = madchi_cc(a[j], bi, acc[j + 1]);
+  }
+}
+// One row: T = (T + a bi + q m) / 2^32 with x, y as above (x holds the
+// previous row's y, y its x), or T = a bi + q m on the first.
+template <int N>
+__device__ __forceinline__ void row(uint32_t* x, uint32_t* y, const uint32_t* a, const uint32_t* md,
+                                    uint32_t inv, uint32_t bi, bool first) {
+  if (first) {
+    mul_n<N>(y, a + 1, bi);
+    mul_n<N>(x, a, bi);
+  } else {
+    x[0] = add_cc(x[0], y[1]);  // its carry is word 1's: y[0]'s
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {  // y = (old x >> 64) + odd products
+      y[j] = madclo_cc(a[j + 1], bi, y[j + 2]);
+      y[j + 1] = madchi_cc(a[j + 1], bi, y[j + 3]);
+    }
+    y[N - 2] = madclo_cc(a[N - 1], bi, 0u);
+    y[N - 1] = madchi(a[N - 1], bi, 0u);
+    cmad_n<N>(x, a, bi);
+    y[N - 1] = addc(y[N - 1], 0u);
+  }
+  const uint32_t q = x[0] * inv;
+  cmad_n<N>(y, md + 1, q);
+  cmad_n<N>(x, md, q);  // x[0] = 0
+  y[N - 1] = addc(y[N - 1], 0u);
+}
+}  // namespace eo
+
+template <class P>
+__device__ __forceinline__ Fe<P> fe_mul_cc(const Fe<P>& a, const Fe<P>& b) {
+  constexpr int N = P::N;
+  static_assert(P::TOP < 0x80000000u && N % 2 == 0, "fe_mul_cc: top bit clear, N even");
+  uint32_t md[N], e[N], o[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) md[i] = P::mod(i);
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    eo::row<N>(e, o, a.v, md, P::INV, b.v[i], i == 0);
+    eo::row<N>(o, e, a.v, md, P::INV, b.v[i + 1], false);
+  }
+  Fe<P> r, d;  // T / 2^32 = e + (o >> 32) < 2m: subtract m once if >= m
+  r.v[0] = add_cc(e[0], o[1]);
+#pragma unroll
+  for (int k = 1; k < N - 1; ++k) r.v[k] = addc_cc(e[k], o[k + 1]);
+  r.v[N - 1] = addc(e[N - 1], 0u);
+  d.v[0] = sub_cc(r.v[0], P::mod(0));
+#pragma unroll
+  for (int k = 1; k < N; ++k) d.v[k] = subc_cc(r.v[k], P::mod(k));
+  const uint32_t borrow = subc(0u, 0u);  // 0xffffffff when r < m
+  return borrow ? r : d;
+}
+
+__device__ __forceinline__ Fp fp_mul_cc(const Fp& a, const Fp& b) { return fe_mul_cc<FpParams>(a, b); }
+
+// out = a * b (Montgomery) over (N, n) limb arrays, one lane a thread.
+template <class P, bool SERIAL = false>
+__global__ void fe_mul_cc_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                                 uint32_t* __restrict__ out, int64_t n) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const Fe<P> x = fe_load<P>(a, n, lane), y = fe_load<P>(b, n, lane);
+  fe_store<P>(out, n, lane, SERIAL ? fe_mul_serial<P>(x, y) : fe_mul_cc<P>(x, y));
 }

@@ -6,21 +6,30 @@
 // :176), built for FR. The TPU kernel worked in 16-bit limbs because the TPU
 // has no 32x32->64 multiply; Hopper has one, so the limbs are 32 bits and
 // the carry chains are exact per row instead of lazy Kogge-Stone passes.
-// Bounds and design: see field.cuh.
-#include "field.cuh"
+//
+// The product runs fp_cc.cuh's CIOS on the carry flag, one lane a thread.
+// The prover launches it at 1 to 65,536 lanes, where one launch is a few
+// microseconds: bound by the latency of a thread's chain of 128 products
+// and by the launch, not by the 96 bytes a lane moves. The add and the sub
+// run field.cuh's 64-bit sums. The product of field.cuh that fr_mul ran
+// before stays as the yardstick fr_mul_sum64, and fr_mul_block takes the
+// block size, so that chip_smoke.py can time them beside fr_mul.
+#include "fp_cc.cuh"
+#include "fr.cuh"
 
-static __constant__ uint32_t SPK_FR_MOD[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
-                                              0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+static constexpr int kFrMulBlock = 128;  // threads a block (chip_smoke.py, PERF.md)
 
-struct FrParams {
-  static constexpr int N = 8;
-  static constexpr uint32_t INV = 0xffffffffu;  // -r^-1 mod 2^32
-  static __device__ __forceinline__ uint32_t mod(int i) { return SPK_FR_MOD[i]; }
-};
+static int fr_mul_launch(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
+                         int threads, cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + threads - 1) / threads;
+  fe_mul_cc_kernel<FrParams><<<(unsigned)blocks, threads, 0, stream>>>(a, b, out, n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int spk_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
                           cudaStream_t stream) {
-  return fe_binary_launch<FrParams, 0>(a, b, out, n, stream);
+  return fr_mul_launch(a, b, out, n, kFrMulBlock, stream);
 }
 
 extern "C" int spk_fr_add(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
@@ -31,4 +40,21 @@ extern "C" int spk_fr_add(const uint32_t* a, const uint32_t* b, uint32_t* out, i
 extern "C" int spk_fr_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
                           cudaStream_t stream) {
   return fe_binary_launch<FrParams, 2>(a, b, out, n, stream);
+}
+
+extern "C" int spk_fr_mul_block(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
+                                int threads, cudaStream_t stream) {
+  return fr_mul_launch(a, b, out, n, threads, stream);
+}
+
+extern "C" int spk_fr_mul_serial(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
+                                 cudaStream_t stream) {
+  const int64_t blocks = (n + kFrMulBlock - 1) / kFrMulBlock;
+  fe_mul_cc_kernel<FrParams, true><<<(unsigned)blocks, kFrMulBlock, 0, stream>>>(a, b, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spk_fr_mul_sum64(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
+                                cudaStream_t stream) {
+  return fe_binary_launch<FrParams, 0>(a, b, out, n, stream);
 }

@@ -1,17 +1,21 @@
-// K3's one-thread G1 kernels: point.cuh's formulas over Fp, one thread per
-// point. The mixed add (spartan_tpu/ops/pallas_curve.py g1_madd :385,
-// _g1_madd_kernel :228 / _madd_rows_pts :172) still runs here on the main
-// path: the prover launches it once, at about a million lanes (the commit
-// MSM's first bucket level), where a thread a point fills the card and the
-// one-thread latency that the team kernels cut does not show. No team
-// program for it is written yet. The add and the double run as team
-// kernels (g1_team.cu); their one-thread versions stay here only so that
-// chip_smoke.py can time the team kernels against them.
+// K3's one-thread G1 kernels: point.cuh's formulas, one thread per point.
+// The prover runs none of them: the add, the mixed add and the double run
+// as team kernels (g1_team.cu). They stay here only so that chip_smoke.py
+// can time the team kernels against them: PR 1's add, mixed add and double
+// over field.cuh's Fp, and the mixed add over the carry flag (FpC), the
+// other candidate for the commit MSM's first bucket level (one launch a
+// prove, about a million lanes), capped at 128 registers so that four
+// blocks fit on an SM.
 #include "point.cuh"
 
-extern "C" int spk_g1_madd(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n,
-                           cudaStream_t stream) {
+extern "C" int spk_g1_madd_onethread(const uint32_t* p, const uint32_t* q, uint32_t* out,
+                                     int64_t n, cudaStream_t stream) {
   return pt_launch<Fp, 0>(p, q, out, n, stream);
+}
+
+extern "C" int spk_g1_madd_thread_cc(const uint32_t* p, const uint32_t* q, uint32_t* out,
+                                     int64_t n, cudaStream_t stream) {
+  return pt_launch<FpC, 0, 4>(p, q, out, n, stream);
 }
 
 extern "C" int spk_g1_add_onethread(const uint32_t* p, const uint32_t* q, uint32_t* out,

@@ -1,10 +1,9 @@
 // Short-Weierstrass (a = 0) Jacobian point formulas, written once over the
-// coordinate field F, one thread per point: Fp for the G1 kernels
-// (g1_ops.cu) and Fp2 for the G2 ones (g2_ops.cu). Of these, only the G1
-// mixed add runs on the main path (one launch a prove, about a million
-// lanes). The G1 add and double and the three G2 kernels run the same
-// formulas as team programs (team.cuh), and g1_ops.cu and g2_ops.cu keep
-// this file's versions of them only as yardsticks.
+// coordinate field F, one thread per point: Fp (field.cuh's arithmetic) and
+// FpC (the same field on the carry flag, fp_cc.cuh) for the G1 kernels
+// (g1_ops.cu), Fp2 for the G2 ones (g2_ops.cu). The main path runs none of
+// them: every point kernel of the prover is a team program (team.cuh), and
+// g1_ops.cu and g2_ops.cu keep this file's versions only as yardsticks.
 // The formulas and the edge-lane rules are those of the JAX package's
 // spartan_tpu/ops/curve.py (double :149, add :171, add_mixed :216), so a
 // kernel and the plain PyTorch version return the same Jacobian limbs.
@@ -19,15 +18,35 @@
 // point per lane.
 //
 // What bounds these kernels on an H100: integer multiply-add issue inside
-// the Fp multiply (field.cuh) at wide widths, and the latency of one
-// thread's chain of dependent products at narrow ones; registers: one
-// thread holds every live temporary of the formula. Over Fp the formulas
-// fit in a thread's 255 registers; over Fp2 they need more and ptxas spills
-// to local memory. 128 threads per block, so a block never runs out of
-// registers.
+// the Fp multiply at wide widths, and the latency of one thread's chain of
+// dependent products at narrow ones; registers: one thread holds every live
+// temporary of the formula. Over Fp the formulas fit in a thread's 255
+// registers (112 to 250 over field.cuh's Fp, PERF.md), so few warps fit on
+// an SM; over Fp2 they need more and ptxas spills to local memory. 128
+// threads per block, so a block never runs out of registers; a kernel's
+// MINB (__launch_bounds__) caps its registers at 65,536 / (128 MINB).
 #pragma once
 
-#include "fp.cuh"
+#include "fp_cc.cuh"
+
+// Fp on the carry flag as a coordinate field of its own, so that the
+// formulas below run over it.
+struct FpC {
+  Fp v;
+};
+__device__ __forceinline__ FpC f_add(const FpC& a, const FpC& b) { return {fp_add_cc(a.v, b.v)}; }
+__device__ __forceinline__ FpC f_sub(const FpC& a, const FpC& b) { return {fp_sub_cc(a.v, b.v)}; }
+__device__ __forceinline__ FpC f_mul(const FpC& a, const FpC& b) { return {fp_mul_cc(a.v, b.v)}; }
+__device__ __forceinline__ FpC f_sqr(const FpC& a) { return {fp_mul_cc(a.v, a.v)}; }
+__device__ __forceinline__ bool f_is_zero(const FpC& a) { return fe_is_zero<FpParams>(a.v); }
+__device__ __forceinline__ void coord_load(FpC& out, const uint32_t* base, int64_t n, int c,
+                                           int64_t lane) {
+  coord_load(out.v, base, n, c, lane);
+}
+__device__ __forceinline__ void coord_store(uint32_t* base, int64_t n, int c, int64_t lane,
+                                            const FpC& a) {
+  coord_store(base, n, c, lane, a.v);
+}
 
 template <class F>
 struct Jac {
@@ -125,12 +144,11 @@ __device__ __forceinline__ void pt_store(uint32_t* base, int64_t n, int64_t lane
   coord_store(base, n, 2, lane, p.z);
 }
 
-#ifdef __CUDACC__
-// OP: 0 = madd, 1 = add, 2 = double (q unused).
-template <class F, int OP>
-__global__ void __launch_bounds__(128) pt_kernel(const uint32_t* __restrict__ p,
-                                                 const uint32_t* __restrict__ q,
-                                                 uint32_t* __restrict__ out, int64_t n) {
+// OP: 0 = madd, 1 = add, 2 = double (q unused); MINB: blocks an SM holds.
+template <class F, int OP, int MINB = 1>
+__global__ void __launch_bounds__(128, MINB) pt_kernel(const uint32_t* __restrict__ p,
+                                                       const uint32_t* __restrict__ q,
+                                                       uint32_t* __restrict__ out, int64_t n) {
   int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   Jac<F> a = pt_load<F>(p, n, lane);
@@ -145,12 +163,13 @@ __global__ void __launch_bounds__(128) pt_kernel(const uint32_t* __restrict__ p,
   pt_store<F>(out, n, lane, r);
 }
 
-template <class F, int OP>
+#ifdef __CUDACC__
+template <class F, int OP, int MINB = 1>
 static int pt_launch(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n,
                      cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
-  pt_kernel<F, OP><<<(unsigned)blocks, threads, 0, stream>>>(p, q, out, n);
+  pt_kernel<F, OP, MINB><<<(unsigned)blocks, threads, 0, stream>>>(p, q, out, n);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

@@ -1,7 +1,7 @@
-// Team point kernels: the Jacobian add and 2^k-fold double of K3 (G1) and
-// the add, mixed add and 2^k-fold double of K4 (G2), one team of T threads
-// per point, one kernel template over both groups. They replace
-// spartan_tpu/ops/pallas_curve.py g1_add (:378, _g1_add_kernel :216),
+// Team point kernels: the Jacobian add, mixed add and 2^k-fold double of K3
+// (G1) and of K4 (G2), one team of T threads per point, one kernel template
+// over both groups. They replace spartan_tpu/ops/pallas_curve.py g1_add
+// (:378, _g1_add_kernel :216), g1_madd (:385, _g1_madd_kernel :228),
 // g1_double (:392, _g1_double_kernel :255), g2_add (:399, _g2_add_kernel
 // :264), g2_madd (:410, _g2_madd_kernel :240) and g2_double (:421,
 // _g2_double_kernel :279); the port's doubles repeat k times in one launch,
@@ -13,9 +13,10 @@
 // idle but for one chain of dependent Fp products when one thread computes
 // the point (point.cuh): 7 for a G1 double, 16 for a G1 add or a G2
 // double, 44 for a G2 add, each a 288-product CIOS chain. At tens of
-// thousands of points, and at the mixed add's 1 M points, they are bound by
+// thousands of points, and at the mixed adds' 1 M points, they are bound by
 // 32-bit multiply throughput (2 IMADs per 32x32->64 product, 64 IMADs per SM
-// per clock).
+// per clock); there a team's slice of shared memory (12 limbs a slot), not
+// its registers, limits how many points an SM holds.
 //
 // What the design does about it. The formulas are written as stages of
 // independent Fp operations (ops/team.py, tables in team_prog.cuh): over
@@ -159,6 +160,7 @@ struct Prog<G2, kDouble> {
   static constexpr int kSlots = G2T_DBL_SLOTS;
 };
 SPK_TEAM_PROG(G1, kAdd, ADD)
+SPK_TEAM_PROG(G1, kMadd, MADD)
 SPK_TEAM_PROG(G2, kAdd, ADD)
 SPK_TEAM_PROG(G2, kMadd, MADD)
 #undef SPK_TEAM_PROG
@@ -172,7 +174,7 @@ __device__ __forceinline__ bool z_is_zero(const uint4* sh, int first) {
   return z;
 }
 
-// OP = kAdd: out = p + q; kMadd: out = p + q with q affine-encoded (G2);
+// OP = kAdd: out = p + q; kMadd: out = p + q with q affine-encoded;
 // kDouble: out = 2^k p. Points are (G::NC, 12, n) limb-major.
 template <class G, int T, int OP>
 __global__ void __launch_bounds__(kBlock) team_kernel(const uint32_t* __restrict__ p,
@@ -250,13 +252,16 @@ static int launch_t(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t
 }
 
 // Team size T in {2, 4, 8} for G1 and {4, 8, 16} for G2 (the widest stages
-// hold 5 and 17 operations); any other value is refused
-// (cudaErrorInvalidValue).
+// hold 5 and 17 operations), and also 1 for the G1 mixed add (its stages
+// hold at most 3); any other value is refused (cudaErrorInvalidValue).
 template <class G, int OP>
 static int launch(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n, int k, int T,
                   cudaStream_t stream) {
   if constexpr (G::NC == 3) {
     switch (T) {
+      case 1:
+        if constexpr (OP == kMadd) return launch_t<G, 1, OP>(p, q, out, n, k, stream);
+        break;
       case 2: return launch_t<G, 2, OP>(p, q, out, n, k, stream);
       case 4: return launch_t<G, 4, OP>(p, q, out, n, k, stream);
       case 8: return launch_t<G, 8, OP>(p, q, out, n, k, stream);

@@ -7,9 +7,8 @@ is Z = 0; after ``normalize`` it is x = y = z = 0, and a finite affine point
 has z = 1 (Montgomery one).
 
 ``double``, ``add`` and ``add_mixed`` are the wrappers of the point kernels
-K3 (G1: ``csrc/g1_team.cu``, mixed add ``csrc/g1_ops.cu``) and K4 (G2,
-``csrc/g2_team.cu``); the double takes a repeat count k and returns 2^k P in
-one launch. For CPU
+K3 (G1, ``csrc/g1_team.cu``) and K4 (G2, ``csrc/g2_team.cu``); the double
+takes a repeat count k and returns 2^k P in one launch. For CPU
 tensors they run the plain PyTorch versions beside them (``*_plain``), which
 evaluate the same formulas (dbl-2009-l, add-2007-bl, madd-2007-bl, a = 0)
 with the same edge-lane rules, so kernel and plain version agree limb for

@@ -1,6 +1,6 @@
 """Stage programs of the team point kernels (``csrc/team.cuh``), written at
-the level of Fp operations: K3's G1 add and 2^k-fold double, and K4's G2
-add, mixed add and 2^k-fold double.
+the level of Fp operations: K3's G1 add, mixed add and 2^k-fold double,
+and K4's G2 add, mixed add and 2^k-fold double.
 
 A team of T threads computes one point. The formulas of ``ops/curve.py``
 (dbl-2009-l, add-2007-bl, madd-2007-bl with a = 0) are written here as
@@ -9,7 +9,7 @@ wrote, so the team's threads share out a stage's operations and meet at one
 ``__syncwarp`` after it. Over Fp2, Karatsuba gives three independent Fp
 products per multiply and the complex square two. The chain of dependent
 Fp products is 3 deep for a double (G1 7 products, G2 16) and 5 deep for
-an add (G1 16, G2 44) and the G2 mixed add (30).
+an add (G1 16, G2 44) and a mixed add (G1 11, G2 30).
 
 An operation is a Montgomery product ``d = a * b`` or a linear combination
 ``d = s * (sum of +-terms)``, a term repeated to give it a coefficient and
@@ -63,6 +63,23 @@ G1_ADD = [
     ["PX = r2 - h3 - 2*uh", "W = 3*uh - r2 + h3"],
     ["e = R * W", "f = S1 * h3"],
     ["PY = e - f"],
+]
+
+# madd-2007-bl as in curve.add_mixed_plain, Q affine (Z2 = 1): Z1Z1 = Z1^2,
+# U2 = X2 Z1Z1, S2 = Y2 Z1 Z1Z1, H = U2 - X1, R = S2 - Y1,
+# X3 = R^2 - H^3 - 2 X1 H^2, Y3 = R (X1 H^2 - X3) - Y1 H^3, Z3 = Z1 H.
+# 11 products in 5 dependent stages. Z3 = Z1 H reads PZ, so it reaches PZ's
+# slot by a copy in the last stage; Q's Z is read only by the kernel's
+# Q = inf test.
+G1_MADD = [
+    ["zz = PZ * PZ", "b = QY * PZ"],
+    ["U2 = QX * zz", "S2 = b * zz"],
+    ["H = U2 - PX", "R = S2 - PY"],
+    ["h2 = H * H", "r2 = R * R", "z3 = PZ * H"],
+    ["h3 = H * h2", "uh = PX * h2"],
+    ["PX = r2 - h3 - 2*uh", "W = 3*uh - r2 + h3"],
+    ["e = R * W", "f = PY * h3"],
+    ["PY = e - f", "PZ = z3"],
 ]
 
 # dbl-2009-l: A = X^2, B = Y^2, C = B^2, D = 2((X + B)^2 - A - C), E = 3A,
@@ -257,8 +274,8 @@ def _group(prefix, p_slots, q_slots, double, adds, check_stage, check) -> Group:
 
 
 GROUPS = {
-    "g1": _group("G1T", ["PX", "PY", "PZ"], ["QX", "QY", "QZ"], G1_DOUBLE, {"ADD": G1_ADD},
-                 2, ["H", "R"]),
+    "g1": _group("G1T", ["PX", "PY", "PZ"], ["QX", "QY", "QZ"], G1_DOUBLE,
+                 {"ADD": G1_ADD, "MADD": G1_MADD}, 2, ["H", "R"]),
     "g2": _group("G2T", ["PX0", "PX1", "PY0", "PY1", "PZ0", "PZ1"],
                  ["QX0", "QX1", "QY0", "QY1", "QZ0", "QZ1"], G2_DOUBLE,
                  {"ADD": G2_ADD, "MADD": G2_MADD}, 4, ["H0", "H1", "R0", "R1"]),
@@ -296,7 +313,7 @@ def team_double(coords: List[int], k: int, p: int) -> List[int]:
 
 
 def team_add(pc: List[int], qc: List[int], p: int, name: str = "ADD") -> List[int]:
-    """P + Q as the add (``name`` "ADD") or G2 mixed add ("MADD", Q affine)
+    """P + Q as the add (``name`` "ADD") or mixed add ("MADD", Q affine)
     kernel computes it, edge rules in the kernel's order: P = inf -> Q;
     Q = inf -> P; H = R = 0 -> double(P)."""
     g = _of(pc)

@@ -1,8 +1,10 @@
 """The CUDA sources of the port's kernels, compiled for the host with g++
 behind ``tests/cuda_host_shim.h`` and run on CPU threads, against the plain
-PyTorch versions: the team point kernels (G1 add and 2^k-fold double, G2
-add, mixed add and 2^k-fold double, at every team size, edge lanes included)
-and both versions of the Fp Fermat inversion. This holds the kernels' own arithmetic, tables and edge rules on
+PyTorch versions: the team point kernels (G1 and G2 add, mixed add and
+2^k-fold double, at every team size, edge lanes included), the one-thread
+G1 mixed add on the carry flag, the carry-flag Montgomery product of fr_mul
+(and its Fp instantiation, the team kernels' product) and both versions of
+the Fp Fermat inversion. This holds the kernels' own arithmetic, tables and edge rules on
 the CPU. Every ``.cu`` file, entry points and launches included, also goes
 through ``g++ -fsyntax-only`` with the CUDA runtime stubbed, which finds a
 C++ error before a build on the card; whether nvcc accepts them, and how
@@ -31,6 +33,8 @@ CSRC = ROOT.parent / "spartan_tpu_torch" / "csrc"
 ENTRY = r"""
 #include "team.cuh"
 #include "fp_inv.cuh"
+#include "point.cuh"
+#include "fr.cuh"
 
 // op: 0 double, 1 add, 2 mixed add (team::Op); T: team size
 #define CASE(G, TT, OP) \
@@ -40,7 +44,24 @@ extern "C" int host_g1(int op, int T, const uint32_t* p, const uint32_t* q, uint
   using namespace team;
   const unsigned blocks = (unsigned)((n + kBlock / T - 1) / (kBlock / T));
   CASE(G1, 2, 0) CASE(G1, 2, 1) CASE(G1, 4, 0) CASE(G1, 4, 1) CASE(G1, 8, 0) CASE(G1, 8, 1)
+  CASE(G1, 1, 2) CASE(G1, 2, 2) CASE(G1, 4, 2)
   return 1;
+}
+
+extern "C" int host_g1_madd_thread_cc(const uint32_t* p, const uint32_t* q, uint32_t* out,
+                                      int64_t n) {
+  shim_launch((unsigned)((n + 127) / 128), 128, [&] { pt_kernel<FpC, 0, 4>(p, q, out, n); });
+  return 0;
+}
+
+// fr: 1 for Fr (fr_mul's kernel), 0 for Fp
+extern "C" int host_mul_cc(int fr, const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n) {
+  const unsigned blocks = (unsigned)((n + 127) / 128);
+  if (fr)
+    shim_launch(blocks, 128, [&] { fe_mul_cc_kernel<FrParams>(a, b, out, n); });
+  else
+    shim_launch(blocks, 128, [&] { fe_mul_cc_kernel<FpParams>(a, b, out, n); });
+  return 0;
 }
 
 extern "C" int host_g2(int op, int T, const uint32_t* p, const uint32_t* q, uint32_t* out,
@@ -84,6 +105,8 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.host_g1.argtypes = lib.host_g2.argtypes = [i32, i32, vp, vp, vp, i64, i32]
+    lib.host_g1_madd_thread_cc.argtypes = [vp, vp, vp, i64]
+    lib.host_mul_cc.argtypes = [i32, vp, vp, vp, i64]
     lib.host_fp_inv.argtypes = [i32, vp, vp, i64]
     return lib
 
@@ -185,6 +208,65 @@ def test_g1_team_kernel_source_matches_plain(lib, g1_lanes, op, team):
     code = {"double": 0, "add": 1}[op]
     assert lib.host_g1(code, team, p.data.data_ptr(), q.data.data_ptr(), out.data_ptr(), p.n, k) == 0
     assert torch.equal(out, want)
+
+
+@pytest.fixture(scope="module")
+def g1_madd_lanes():
+    """13 lanes of P (Jacobian, Z != 1; affine from lane 9 on, as the
+    MSM's first bucket level has) and Q affine-encoded. Lanes 0-3 are
+    P == Q, P == -Q, P = inf and Q = inf."""
+    rng = random.Random(23)
+    base = [hc.G1.mul(hf.G1_GEN, rng.randrange(1, hf.R)) for _ in range(6)]
+    ps = [base[i % 6] for i in range(13)]
+    qs = [base[(5 * i + 2) % 6] for i in range(13)]
+    ps[2] = None
+    qs[3] = None
+    p = tcv.double(tcv.g1_encode(ps))
+    p.data[..., 9:] = tcv.g1_encode(ps[9:]).data
+    qs[0] = hc.G1.double(ps[0])  # P == Q
+    qs[1] = hc.G1.neg(hc.G1.double(ps[1]))  # P == -Q
+    qs[9] = ps[9]  # P == Q, both affine
+    return p, tcv.g1_encode(qs)
+
+
+@pytest.mark.parametrize("version", ["team1", "team2", "team4", "thread_cc"])
+def test_g1_madd_kernel_source_matches_plain(lib, g1_madd_lanes, version):
+    """The G1 mixed add's team kernel at each team size and the one-thread
+    carry-flag kernel against add_mixed_plain, edge lanes included."""
+    p, q = g1_madd_lanes
+    want = tcv.add_mixed_plain(p, q).data
+    out = torch.zeros_like(p.data)
+    args = (p.data.data_ptr(), q.data.data_ptr(), out.data_ptr(), p.n)
+    if version == "thread_cc":
+        assert lib.host_g1_madd_thread_cc(*args) == 0
+    else:
+        assert lib.host_g1(2, int(version[4:]), *args, 0) == 0
+    assert torch.equal(out, want)
+    assert tcv.g1_decode(tcv.PointBatch(out, "g1"))[:4] == [
+        hc.G1.double(tcv.g1_decode(p)[0]), None, tcv.g1_decode(q)[2], tcv.g1_decode(p)[3]]
+
+
+@pytest.mark.parametrize("name", ["fr", "fp"])
+def test_mul_cc_kernel_source_matches_plain_and_jax(lib, name):
+    """fp_cc.cuh's Montgomery product, the body of fr_mul's kernel (and, over
+    Fp, the team kernels' product), against mont_mul_plain, the JAX
+    package's mont_mul and Python integers: every pair of 0, 1, m - 1 and
+    R mod m, then random pairs."""
+    from spartan_tpu.ops import field as jf
+
+    tspec, jspec = (tf.FR, jf.FR) if name == "fr" else (tf.FP, jf.FP)
+    m = tspec.modulus
+    rng = random.Random(29)
+    edge = [0, 1, m - 1, (1 << (32 * tspec.nlimb)) % m]
+    xs = [x for x in edge for _ in edge] + [rng.randrange(m) for _ in range(20)]
+    ys = edge * len(edge) + [rng.randrange(m) for _ in range(20)]
+    a, b = tf.encode_ints(tspec, xs), tf.encode_ints(tspec, ys)
+    out = torch.zeros_like(a)
+    assert lib.host_mul_cc(name == "fr", a.data_ptr(), b.data_ptr(), out.data_ptr(), len(xs)) == 0
+    assert torch.equal(out, tf.mont_mul_plain(tspec, a, b))
+    jax_out = jf.mont_mul(jspec, jf.encode_ints(jspec, xs), jf.encode_ints(jspec, ys))
+    assert tf.decode_ints(tspec, out) == jf.decode_ints(jspec, jax_out)
+    assert tf.decode_ints(tspec, out) == [x * y * tspec.r_inv % m for x, y in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("version", ["thread", "warp"])

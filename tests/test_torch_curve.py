@@ -182,6 +182,8 @@ def test_g2_team_header_is_generated_from_the_programs():
             for table in ("END", "OPS"):
                 assert f"{g.prefix}_{name}_{table}[" in text
     assert "G1T_ADD_CHECK[2]" in text and "G2T_ADD_CHECK[4]" in text
+    assert "G1T_MADD_CHECK[2]" in text and "G2T_MADD_CHECK[4]" in text
+    assert set(team.GROUPS["g1"].programs) == {"DBL", "ADD", "MADD"}
 
 
 def _coords(batch, lane):
@@ -234,24 +236,32 @@ def test_g2_team_madd_program_matches_plain_and_jax():
     assert tcv.g2_decode(want)[2] is None
 
 
-@pytest.mark.parametrize("op", ["add", "double"])
+@pytest.mark.parametrize("op", ["add", "double", "madd"])
 def test_g1_team_programs_match_plain_and_jax(op):
     """The G1 stage programs (run by team_add / team_double over p = the Fp
     modulus), with the kernel's edge rules, against curve.add_plain /
-    double_plain and the JAX package's add / double over G1_FIELD, on
-    P + Q, P + P, P + (-P), inf + Q and P + inf with P and Q Jacobian
-    (Z != 1)."""
+    double_plain / add_mixed_plain and the JAX package's add / double /
+    add_mixed over G1_FIELD, on P + Q, P + P, P + (-P), inf + Q and P + inf
+    with P Jacobian (Z != 1) and Q Jacobian too, or affine-encoded for the
+    mixed add."""
     from spartan_tpu_torch.ops import team
 
     ops, ps, qs = _lanes("g1")
     qs2 = list(qs)
     qs2[1] = ps[1]  # 2P + 2P: the doubling rule
+    if op == "madd":  # Q affine: 2P + 2P and 2P - 2P as affine Q
+        qs2 = [ops.double(q) if i in (1, 2) else q for i, q in enumerate(qs)]
     jp, jq = (jcv.double(jcv.G1_FIELD, jcv.g1_encode(x)) for x in (ps, qs2))
     tp, tq = tcv.double(tcv.g1_encode(ps)), tcv.double(tcv.g1_encode(qs2))
     if op == "add":
         want = tcv.add_plain(tp, tq)
         jr = jcv.add(jcv.G1_FIELD, jp, jq)
         host = [ops.add(ops.double(p), ops.double(q)) for p, q in zip(ps, qs2)]
+    elif op == "madd":
+        tq = tcv.g1_encode(qs2)
+        want = tcv.add_mixed_plain(tp, tq)
+        jr = jcv.add_mixed(jcv.G1_FIELD, jp, jcv.g1_encode(qs2))
+        host = [ops.add(ops.double(p), q) for p, q in zip(ps, qs2)]
     else:
         want = tcv.double_plain(tp, 2)
         jr = jcv.double(jcv.G1_FIELD, jcv.double(jcv.G1_FIELD, jp))
@@ -260,8 +270,11 @@ def test_g1_team_programs_match_plain_and_jax(op):
     assert tcv.g1_decode(want) == host
     for lane in range(tp.n):
         pc = _coords(tp, lane)
-        got = team.team_add(pc, _coords(tq, lane), hf.P) if op == "add" else \
-            team.team_double(pc, 2, hf.P)
+        got = team.team_double(pc, 2, hf.P) if op == "double" else \
+            team.team_add(pc, _coords(tq, lane), hf.P, op.upper())
         assert got == _coords(want, lane), lane
     if op == "add":
         assert host[2] is None and host[3] == ops.double(qs2[3]) and host[4] == ops.double(ps[4])
+    if op == "madd":
+        assert host[1] == ops.double(qs2[1]) and host[2] is None
+        assert host[3] == qs2[3] and host[4] == ops.double(ps[4])

@@ -17,13 +17,13 @@ exits non-zero:
    2^16 lanes; k = 1, 4, 8 at 8, 28,672 and 2^16) and the G2 mixed add at
    8, 4,096, 2^16 and 1,029,085 lanes, beside their one-thread versions and
    every team size; the G1 mixed add at 2,048, 2^16 and 1,043,405 lanes
-   (the prove's one launch) at every team size beside PR 1's one-thread
-   kernel and the one-thread kernel on the carry flag; the Fp inversion at
+   (the prove's one launch) beside its team program at every team size and
+   PR 1's one-thread kernel; the Fp inversion at
    1, 16 and 4,096 lanes beside its one-thread version and the fp_mul chain
    it replaced; the field kernels' device time (a CUDA graph of 20 launches
    replayed between CUDA events) at 2^16 lanes and at the prove's most
-   launched shape, and fr_mul's at the prove's widths beside its version
-   before the carry flag and every block size; nvidia-smi's clocks.sm
+   launched shape, and fr_mul's at every width the prove launches it at
+   beside its version before the carry flag; nvidia-smi's clocks.sm
    sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
@@ -229,8 +229,8 @@ G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
 # level), 2^16 and 2,048
 G1_MADD_WIDTHS = (2048, 1 << 16, 1_043_405)
 TEAMS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}  # team sizes each group's kernels take
-TEAMS_OF = {"g1_madd": (1, 2, 4)}  # a kernel's own, where they differ from its group's
-EXTRA_VERSIONS = {"g1_madd": ("thread_cc",)}  # yardstick spk_<name>_<label>, one thread a point
+TEAMS_OF = {"g1_madd": (2, 4)}  # a kernel's own, where they differ from its group's
+EXTRA_VERSIONS = {"g1_madd": ("minb2", "minb3")}  # yardstick spk_<name>_<label>
 # the field kernels' most launched shape in the 2^16 prove (phase 4 prints them)
 FIELD_SHAPES = {"fr_mul": 32_768, "fr_add": 1 << 16, "fr_sub": 1, "fp_mul": 48, "fp_add": 16,
                 "fp_sub": 32}
@@ -238,7 +238,6 @@ FIELD_SHAPES = {"fr_mul": 32_768, "fr_add": 1 << 16, "fr_sub": 1, "fp_mul": 48, 
 FR_MUL_WIDTHS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024,
                  1536, 2048, 3072, 4096, 6144, 8192, 12_288, 16_384, 24_576, 32_768, 49_152,
                  65_532, 1 << 16, 98_304, 163_829, 196_596)
-FR_MUL_BLOCKS = (32, 64, 128, 256, 512)  # threads a block
 FP_INV_LANES = (1, 16, 4096)  # the prover inverts 1 lane at a time
 
 
@@ -438,26 +437,22 @@ def _field_device(card: Card, row: dict, a: torch.Tensor, b: torch.Tensor) -> No
 
 
 def _fr_mul_width(card: Card, lanes: int, a: torch.Tensor, b: torch.Tensor) -> dict:
-    """fr_mul at ``lanes`` lanes: the entry point, its version before the
-    carry flag (field.cuh's product) and the carry-flag product at every
-    block size, each bit-exact against the plain version, by device time."""
+    """fr_mul at ``lanes`` lanes, the entry point and its version before the
+    carry flag (field.cuh's product), each bit-exact against the plain
+    version, by device time."""
     from spartan_tpu_torch.ops import field as fo
     from spartan_tpu_torch.ops.field import FR
 
     want = fo.mont_mul_plain(FR, a, b)
-    versions = [("entry", "fr_mul", ()), ("sum64", "fr_mul_sum64", ()), ("serial", "fr_mul_serial", ())]
-    versions += [(f"block{t}", "fr_mul_block", (t,)) for t in FR_MUL_BLOCKS]
     row = {"lanes": lanes}
-    for label, name, args in versions:
+    for label, name in (("device_ms", "fr_mul"), ("sum64_device_ms", "fr_mul_sum64")):
         out = torch.zeros_like(a)
-        direct(name, out, a, b, args=args)()
-        check(torch.equal(out, want), f"fr_mul lanes={lanes} {label}: disagrees with the plain version")
-        row["device_ms" if label == "entry" else f"{label}_device_ms"] = graph_ms(name, out, a, b, args=args)
+        direct(name, out, a, b)()
+        check(torch.equal(out, want), f"fr_mul lanes={lanes} {name}: disagrees with the plain version")
+        row[label] = graph_ms(name, out, a, b)
     row["bound_ms"], row["bound_by"] = card.bound(PRODUCTS["fr_mul"] * lanes, LANE_BYTES["fr_mul"] * lanes)
     print(f"fr_mul lanes={lanes} bit-exact, device ms: entry {row['device_ms']:.5f}  before the carry "
-          f"flag {row['sum64_device_ms']:.5f}  serial {row['serial_device_ms']:.5f}  "
-          + "  ".join(f"block {t} {row[f'block{t}_device_ms']:.5f}" for t in FR_MUL_BLOCKS)
-          + f"  bound {row['bound_ms']:.2e} ({row['bound_by']})", flush=True)
+          f"flag {row['sum64_device_ms']:.5f}  bound {row['bound_ms']:.2e} ({row['bound_by']})", flush=True)
     return row
 
 

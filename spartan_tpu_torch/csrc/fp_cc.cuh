@@ -101,71 +101,30 @@ __device__ __forceinline__ Fp fp_sub_cc(const Fp& a, const Fp& b) {
   return borrow ? e : d;
 }
 
-// a * b * 2^(-32N) mod m for canonical a, b < m: CIOS as in field.cuh, each
-// row's low and high halves added along the carry flag.
-//
-// field.cuh keeps N + 2 words of t. Here N + 1 do, because the modulus's top
-// bit is clear (m < 2^(32N-1): Fr's top limb is 0x73eda753, Fp's
-// 0x1a0111ea; P::TOP, checked below): a row starts from t < 2m and adds
-// a * b_i < 2^32 m and q * m < 2^32 m, so every partial sum stays below
-// 2^33 m < 2^(32N+32), the extra top word t[N+1] is always 0 and the last
-// add of each half needs no carry out. After the last row t < 2m < 2^(32N),
-// so one conditional subtract over N words makes it canonical.
-template <class P>
-__device__ __forceinline__ Fe<P> fe_mul_serial(const Fe<P>& a, const Fe<P>& b) {
-  constexpr int N = P::N;
-  static_assert(P::TOP < 0x80000000u, "fe_mul_serial needs the modulus's top bit clear");
-  uint32_t t[N + 1];
-#pragma unroll
-  for (int i = 0; i < N + 1; ++i) t[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t bi = b.v[i];
-    t[0] = madlo_cc(a.v[0], bi, t[0]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = madclo_cc(a.v[j], bi, t[j]);
-    t[N] = addc(t[N], 0u);
-    t[1] = madhi_cc(a.v[0], bi, t[1]);
-#pragma unroll
-    for (int j = 1; j < N - 1; ++j) t[j + 1] = madchi_cc(a.v[j], bi, t[j + 1]);
-    t[N] = madchi(a.v[N - 1], bi, t[N]);
-
-    const uint32_t m = t[0] * P::INV;
-    t[0] = madlo_cc(m, P::mod(0), t[0]);  // 0, and a carry
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = madclo_cc(m, P::mod(j), t[j]);
-    t[N] = addc(t[N], 0u);
-    t[1] = madhi_cc(m, P::mod(0), t[1]);
-#pragma unroll
-    for (int j = 1; j < N - 1; ++j) t[j + 1] = madchi_cc(m, P::mod(j), t[j + 1]);
-    t[N] = madchi(m, P::mod(N - 1), t[N]);
-#pragma unroll
-    for (int j = 0; j < N; ++j) t[j] = t[j + 1];  // divide by 2^32
-    t[N] = 0u;
-  }
-  Fe<P> r, d;  // t < 2m: subtract m once if t >= m
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.v[k] = t[k];
-  d.v[0] = sub_cc(t[0], P::mod(0));
-#pragma unroll
-  for (int k = 1; k < N; ++k) d.v[k] = subc_cc(t[k], P::mod(k));
-  const uint32_t borrow = subc(0u, 0u);  // 0xffffffff when t < m
-  return borrow ? r : d;
-}
-
-// The same product with two accumulators, after the even/odd split of
-// sppark's mont_t: the products a_j b_i of even j fill words j, j + 1 of one
+// a * b * 2^(-32N) mod m for canonical a, b < m: CIOS as in field.cuh, on
+// the carry flag and with two accumulators, after the even/odd split of
+// sppark's mont_t. The products a_j b_i of even j fill words j, j + 1 of one
 // array with no carry between them, those of odd j another array one word
-// up, so each row runs two carry chains that do not depend on each other
-// and the compiler can interleave them. T = x + y 2^32, x N words from word
-// 0, y N words from word 1; after a row's reduction x[0] = 0 and T / 2^32 =
-// (y + x[1]) + (x >> 64) 2^32, so the arrays swap roles every row (N even).
-// The bound above keeps y < 2^(32N), so a chain into y needs no carry out.
+// up (and the same for q m_j), so each row runs two carry chains that do not
+// depend on each other and ptxas interleaves them; with one accumulator
+// every product of a row waits for the one before (PERF.md, PR 5: on the
+// H100 that product was the slower one at every width measured). T = x +
+// y 2^32, x N words from word 0, y N words from word 1. After a row's
+// reduction x[0] = 0 and T / 2^32 = (y + x[1]) + (x >> 64) 2^32, so the
+// arrays swap roles every row (N even).
+//
+// field.cuh keeps N + 2 words of T; here 2N words in two arrays do, because
+// the modulus's top bit is clear (m < 2^(32N-1): Fr's top limb is
+// 0x73eda753, Fp's 0x1a0111ea; P::TOP, checked below). A row starts from
+// T < 2m and adds a b_i < 2^32 m and q m < 2^32 m, so every partial sum
+// stays below 2^33 m < 2^(32N+32): y < 2^(32N), and a chain into y's top
+// word needs no carry out. After the last row T < 2m < 2^(32N), so one
+// conditional subtract over N words makes it canonical.
 namespace eo {
 __device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
   return (uint32_t)(((uint64_t)a * b) >> 32);
 }
-// acc[j], acc[j + 1] = a[j] * bi for even j < n (a is read at stride 1)
+// acc[j], acc[j + 1] = a[j] * bi for even j < N
 template <int N>
 __device__ __forceinline__ void mul_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
 #pragma unroll
@@ -215,7 +174,7 @@ __device__ __forceinline__ void row(uint32_t* x, uint32_t* y, const uint32_t* a,
 template <class P>
 __device__ __forceinline__ Fe<P> fe_mul_cc(const Fe<P>& a, const Fe<P>& b) {
   constexpr int N = P::N;
-  static_assert(P::TOP < 0x80000000u && N % 2 == 0, "fe_mul_cc: top bit clear, N even");
+  static_assert(P::TOP < 0x80000000u && N % 2 == 0, "fe_mul_cc needs the top bit clear, N even");
   uint32_t md[N], e[N], o[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) md[i] = P::mod(i);
@@ -239,11 +198,10 @@ __device__ __forceinline__ Fe<P> fe_mul_cc(const Fe<P>& a, const Fe<P>& b) {
 __device__ __forceinline__ Fp fp_mul_cc(const Fp& a, const Fp& b) { return fe_mul_cc<FpParams>(a, b); }
 
 // out = a * b (Montgomery) over (N, n) limb arrays, one lane a thread.
-template <class P, bool SERIAL = false>
+template <class P>
 __global__ void fe_mul_cc_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                                  uint32_t* __restrict__ out, int64_t n) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const Fe<P> x = fe_load<P>(a, n, lane), y = fe_load<P>(b, n, lane);
-  fe_store<P>(out, n, lane, SERIAL ? fe_mul_serial<P>(x, y) : fe_mul_cc<P>(x, y));
+  fe_store<P>(out, n, lane, fe_mul_cc<P>(fe_load<P>(a, n, lane), fe_load<P>(b, n, lane)));
 }

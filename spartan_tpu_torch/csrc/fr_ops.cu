@@ -7,29 +7,23 @@
 // has no 32x32->64 multiply; Hopper has one, so the limbs are 32 bits and
 // the carry chains are exact per row instead of lazy Kogge-Stone passes.
 //
-// The product runs fp_cc.cuh's CIOS on the carry flag, one lane a thread.
-// The prover launches it at 1 to 65,536 lanes, where one launch is a few
-// microseconds: bound by the latency of a thread's chain of 128 products
-// and by the launch, not by the 96 bytes a lane moves. The add and the sub
-// run field.cuh's 64-bit sums. The product of field.cuh that fr_mul ran
-// before stays as the yardstick fr_mul_sum64, and fr_mul_block takes the
-// block size, so that chip_smoke.py can time them beside fr_mul.
+// The product runs fp_cc.cuh's CIOS on the carry flag, one lane a thread,
+// 128 threads a block (the best of 32 to 512 at the prove's widths, within
+// a few per cent; PERF.md). The prover launches it 283 times a prove at 1 to
+// 196,596 lanes, where a launch takes 2 to 7 us of device time: about 2 us
+// is the launch itself, the rest the latency of a thread's chain of 128
+// products and, from about 50,000 lanes, the 96 bytes a lane moves. The add
+// and the sub run field.cuh's 64-bit sums. field.cuh's product, which
+// fr_mul ran before, stays as the yardstick fr_mul_sum64 for chip_smoke.py.
 #include "fp_cc.cuh"
 #include "fr.cuh"
 
-static constexpr int kFrMulBlock = 128;  // threads a block (chip_smoke.py, PERF.md)
-
-static int fr_mul_launch(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
-                         int threads, cudaStream_t stream) {
-  if (threads < 32 || threads > 1024 || threads % 32) return (int)cudaErrorInvalidValue;
+extern "C" int spk_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
+                          cudaStream_t stream) {
+  const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   fe_mul_cc_kernel<FrParams><<<(unsigned)blocks, threads, 0, stream>>>(a, b, out, n);
   return (int)cudaGetLastError();
-}
-
-extern "C" int spk_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
-                          cudaStream_t stream) {
-  return fr_mul_launch(a, b, out, n, kFrMulBlock, stream);
 }
 
 extern "C" int spk_fr_add(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
@@ -40,18 +34,6 @@ extern "C" int spk_fr_add(const uint32_t* a, const uint32_t* b, uint32_t* out, i
 extern "C" int spk_fr_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
                           cudaStream_t stream) {
   return fe_binary_launch<FrParams, 2>(a, b, out, n, stream);
-}
-
-extern "C" int spk_fr_mul_block(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
-                                int threads, cudaStream_t stream) {
-  return fr_mul_launch(a, b, out, n, threads, stream);
-}
-
-extern "C" int spk_fr_mul_serial(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,
-                                 cudaStream_t stream) {
-  const int64_t blocks = (n + kFrMulBlock - 1) / kFrMulBlock;
-  fe_mul_cc_kernel<FrParams, true><<<(unsigned)blocks, kFrMulBlock, 0, stream>>>(a, b, out, n);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int spk_fr_mul_sum64(const uint32_t* a, const uint32_t* b, uint32_t* out, int64_t n,

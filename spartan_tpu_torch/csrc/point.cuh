@@ -1,9 +1,10 @@
 // Short-Weierstrass (a = 0) Jacobian point formulas, written once over the
 // coordinate field F, one thread per point: Fp (field.cuh's arithmetic) and
 // FpC (the same field on the carry flag, fp_cc.cuh) for the G1 kernels
-// (g1_ops.cu), Fp2 for the G2 ones (g2_ops.cu). The main path runs none of
-// them: every point kernel of the prover is a team program (team.cuh), and
-// g1_ops.cu and g2_ops.cu keep this file's versions only as yardsticks.
+// (g1_ops.cu), Fp2 for the G2 ones (g2_ops.cu). Of these, the main path runs
+// the G1 mixed add over FpC (one launch a prove, about a million lanes);
+// its other point kernels are team programs (team.cuh), and g1_ops.cu and
+// g2_ops.cu keep this file's versions of them only as yardsticks.
 // The formulas and the edge-lane rules are those of the JAX package's
 // spartan_tpu/ops/curve.py (double :149, add :171, add_mixed :216), so a
 // kernel and the plain PyTorch version return the same Jacobian limbs.
@@ -24,7 +25,9 @@
 // registers (112 to 250 over field.cuh's Fp, PERF.md), so few warps fit on
 // an SM; over Fp2 they need more and ptxas spills to local memory. 128
 // threads per block, so a block never runs out of registers; a kernel's
-// MINB (__launch_bounds__) caps its registers at 65,536 / (128 MINB).
+// MINB (__launch_bounds__) caps its registers at 65,536 / (128 MINB). At a
+// million lanes the G1 mixed add over FpC is multiply-bound; its product
+// keeps two carry chains going in each thread (fp_cc.cuh).
 #pragma once
 
 #include "fp_cc.cuh"

@@ -252,16 +252,13 @@ static int launch_t(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t
 }
 
 // Team size T in {2, 4, 8} for G1 and {4, 8, 16} for G2 (the widest stages
-// hold 5 and 17 operations), and also 1 for the G1 mixed add (its stages
-// hold at most 3); any other value is refused (cudaErrorInvalidValue).
+// hold 5 and 17 operations); any other value is refused
+// (cudaErrorInvalidValue).
 template <class G, int OP>
 static int launch(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n, int k, int T,
                   cudaStream_t stream) {
   if constexpr (G::NC == 3) {
     switch (T) {
-      case 1:
-        if constexpr (OP == kMadd) return launch_t<G, 1, OP>(p, q, out, n, k, stream);
-        break;
       case 2: return launch_t<G, 2, OP>(p, q, out, n, k, stream);
       case 4: return launch_t<G, 4, OP>(p, q, out, n, k, stream);
       case 8: return launch_t<G, 8, OP>(p, q, out, n, k, stream);

@@ -18,9 +18,8 @@ the launches of each kernel by lane count and int arguments.
 
 ``YARDSTICKS`` are entry points that only ``chip_smoke.py`` calls, to time a
 kernel against other versions of it (the team point kernels at each team
-size, the one-thread G1 and G2 kernels and Fp inversion, the Fr product at
-each block size and its version before the carry flag); they count no
-launches.
+size, the one-thread G1 and G2 kernels and Fp inversion, the Fr product
+before the carry flag); they count no launches.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ KERNELS = {
     "fp_add": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:258"),
     "fp_sub": (2, "fp_ops.cu", "spartan_tpu/ops/pallas_field.py:262"),
     "fp_inv": (1, "fp_ops.cu", "spartan_tpu/ops/field.py:299"),
-    "g1_madd": (2, "g1_team.cu", "spartan_tpu/ops/pallas_curve.py:385"),
+    "g1_madd": (2, "g1_ops.cu", "spartan_tpu/ops/pallas_curve.py:385"),
     "g1_add": (2, "g1_team.cu", "spartan_tpu/ops/pallas_curve.py:378"),
     "g1_double": (1, "g1_team.cu", "spartan_tpu/ops/pallas_curve.py:392"),
     "g2_madd": (2, "g2_team.cu", "spartan_tpu/ops/pallas_curve.py:410"),
@@ -67,15 +66,14 @@ INT_ARGS = {"g1_double": 1, "g2_double": 1}  # k: the launch returns 2^k P
 
 # yardstick -> (number of input arrays, number of int arguments)
 YARDSTICKS = {
-    "fr_mul_block": (2, 1),  # threads a block
     "fr_mul_sum64": (2, 0),  # field.cuh's product, fr_mul's before the carry flag
-    "fr_mul_serial": (2, 0),  # the carry-flag product with one accumulator
     "g1_add_team": (2, 1),  # team size
     "g1_madd_team": (2, 1),  # team size
     "g1_double_team": (1, 2),  # k, team size
     "g1_add_onethread": (2, 0),
     "g1_madd_onethread": (2, 0),
-    "g1_madd_thread_cc": (2, 0),  # one thread a point on the carry flag
+    "g1_madd_minb2": (2, 0),
+    "g1_madd_minb3": (2, 0),
     "g1_double_onethread": (1, 0),
     "g2_add_team": (2, 1),  # team size
     "g2_madd_team": (2, 1),  # team size

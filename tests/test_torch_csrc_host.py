@@ -1,10 +1,10 @@
 """The CUDA sources of the port's kernels, compiled for the host with g++
 behind ``tests/cuda_host_shim.h`` and run on CPU threads, against the plain
 PyTorch versions: the team point kernels (G1 and G2 add, mixed add and
-2^k-fold double, at every team size, edge lanes included), the one-thread
-G1 mixed add on the carry flag, the carry-flag Montgomery product of fr_mul
-(and its Fp instantiation, the team kernels' product) and both versions of
-the Fp Fermat inversion. This holds the kernels' own arithmetic, tables and edge rules on
+2^k-fold double, at every team size, edge lanes included), the G1 mixed add
+(one thread a point on the carry flag), the carry-flag Montgomery product
+of fr_mul (and its Fp instantiation, the point kernels' product) and both
+versions of the Fp Fermat inversion. This holds the kernels' own arithmetic, tables and edge rules on
 the CPU. Every ``.cu`` file, entry points and launches included, also goes
 through ``g++ -fsyntax-only`` with the CUDA runtime stubbed, which finds a
 C++ error before a build on the card; whether nvcc accepts them, and how
@@ -44,11 +44,11 @@ extern "C" int host_g1(int op, int T, const uint32_t* p, const uint32_t* q, uint
   using namespace team;
   const unsigned blocks = (unsigned)((n + kBlock / T - 1) / (kBlock / T));
   CASE(G1, 2, 0) CASE(G1, 2, 1) CASE(G1, 4, 0) CASE(G1, 4, 1) CASE(G1, 8, 0) CASE(G1, 8, 1)
-  CASE(G1, 1, 2) CASE(G1, 2, 2) CASE(G1, 4, 2)
+  CASE(G1, 2, 2) CASE(G1, 4, 2)
   return 1;
 }
 
-extern "C" int host_g1_madd_thread_cc(const uint32_t* p, const uint32_t* q, uint32_t* out,
+extern "C" int host_g1_madd(const uint32_t* p, const uint32_t* q, uint32_t* out,
                                       int64_t n) {
   shim_launch((unsigned)((n + 127) / 128), 128, [&] { pt_kernel<FpC, 0, 4>(p, q, out, n); });
   return 0;
@@ -105,7 +105,7 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.host_g1.argtypes = lib.host_g2.argtypes = [i32, i32, vp, vp, vp, i64, i32]
-    lib.host_g1_madd_thread_cc.argtypes = [vp, vp, vp, i64]
+    lib.host_g1_madd.argtypes = [vp, vp, vp, i64]
     lib.host_mul_cc.argtypes = [i32, vp, vp, vp, i64]
     lib.host_fp_inv.argtypes = [i32, vp, vp, i64]
     return lib
@@ -229,16 +229,17 @@ def g1_madd_lanes():
     return p, tcv.g1_encode(qs)
 
 
-@pytest.mark.parametrize("version", ["team1", "team2", "team4", "thread_cc"])
+@pytest.mark.parametrize("version", ["entry", "team2", "team4"])
 def test_g1_madd_kernel_source_matches_plain(lib, g1_madd_lanes, version):
-    """The G1 mixed add's team kernel at each team size and the one-thread
-    carry-flag kernel against add_mixed_plain, edge lanes included."""
+    """The G1 mixed add (one thread a point on the carry flag) and its team
+    program at each team size against add_mixed_plain, edge lanes
+    included."""
     p, q = g1_madd_lanes
     want = tcv.add_mixed_plain(p, q).data
     out = torch.zeros_like(p.data)
     args = (p.data.data_ptr(), q.data.data_ptr(), out.data_ptr(), p.n)
-    if version == "thread_cc":
-        assert lib.host_g1_madd_thread_cc(*args) == 0
+    if version == "entry":
+        assert lib.host_g1_madd(*args) == 0
     else:
         assert lib.host_g1(2, int(version[4:]), *args, 0) == 0
     assert torch.equal(out, want)

@@ -230,7 +230,6 @@ G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
 G1_MADD_WIDTHS = (2048, 1 << 16, 1_043_405)
 TEAMS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}  # team sizes each group's kernels take
 TEAMS_OF = {"g1_madd": (2, 4)}  # a kernel's own, where they differ from its group's
-EXTRA_VERSIONS = {"g1_madd": ("minb2", "minb3")}  # yardstick spk_<name>_<label>
 # the field kernels' most launched shape in the 2^16 prove (phase 4 prints them)
 FIELD_SHAPES = {"fr_mul": 32_768, "fr_add": 1 << 16, "fr_sub": 1, "fp_mul": 48, "fp_add": 16,
                 "fp_sub": 32}
@@ -468,9 +467,6 @@ def _team_versions(name: str, ins, k: int, teams) -> list:
     for team in teams:
         out = new()
         versions.append((f"team{team}", direct(f"{name}_team", out, *ins, args=args + (team,)), out))
-    for label in EXTRA_VERSIONS.get(name, ()):
-        out = new()
-        versions.append((label, direct(f"{name}_{label}", out, *ins), out))
     if not double:
         out = new()
         versions.append(("onethread", direct(f"{name}_onethread", out, *ins), out))
@@ -519,7 +515,6 @@ def _team_width(card: Card, group: str, op: str, lanes: int, k: int, rng, dev) -
     row["bound_ms"], row["bound_by"] = card.bound(products, LANE_BYTES[name] * lanes)
     print(f"{label} bit-exact (entry, teams, one-thread): entry {row['ms']:.4f} ms  "
           + "  ".join(f"T={t} {row[f'team{t}_ms']:.4f}" for t in teams)
-          + "".join(f"  {x} {row[f'{x}_ms']:.4f}" for x in EXTRA_VERSIONS.get(name, ()))
           + f"  one-thread {row['onethread_ms']:.4f}  plain {row['plain_ms']:.3f}  "
           f"bound {row['bound_ms']:.2e} ms ({row['bound_by']})", flush=True)
     return row

@@ -8,9 +8,10 @@
 // kernel is bound by 32-bit multiply throughput: 11 Fp products a point.
 // It runs point.cuh's madd-2007-bl over Fp on the carry flag (FpC, whose
 // product keeps two independent carry chains, fp_cc.cuh), every value in
-// registers, capped at 128 registers so that four blocks of 128 fit on an
-// SM. On the H100 that beat the team program (g1_team.cu) at every width
-// measured from 65,536 lanes up (PERF.md, PR 5).
+// registers, capped at 168 registers so that three blocks of 128 fit on an
+// SM (four blocks cost 344 bytes of spills and were no faster, two were
+// slower; PERF.md, PR 5). On the H100 that beat the team program
+// (g1_team.cu) at every width measured from 65,536 lanes up.
 //
 // PR 1's add, mixed add and double over field.cuh's Fp stay here only so
 // that chip_smoke.py can time the kernels that replaced them against them;
@@ -19,16 +20,6 @@
 
 extern "C" int spk_g1_madd(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n,
                            cudaStream_t stream) {
-  return pt_launch<FpC, 0, 4>(p, q, out, n, stream);
-}
-
-extern "C" int spk_g1_madd_minb2(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n,
-                                 cudaStream_t stream) {
-  return pt_launch<FpC, 0, 2>(p, q, out, n, stream);
-}
-
-extern "C" int spk_g1_madd_minb3(const uint32_t* p, const uint32_t* q, uint32_t* out, int64_t n,
-                                 cudaStream_t stream) {
   return pt_launch<FpC, 0, 3>(p, q, out, n, stream);
 }
 

@@ -1,22 +1,24 @@
-// Team point kernels: the Jacobian add, mixed add and 2^k-fold double of K3
-// (G1) and of K4 (G2), one team of T threads per point, one kernel template
-// over both groups. They replace spartan_tpu/ops/pallas_curve.py g1_add
-// (:378, _g1_add_kernel :216), g1_madd (:385, _g1_madd_kernel :228),
-// g1_double (:392, _g1_double_kernel :255), g2_add (:399, _g2_add_kernel
-// :264), g2_madd (:410, _g2_madd_kernel :240) and g2_double (:421,
-// _g2_double_kernel :279); the port's doubles repeat k times in one launch,
-// as the JAX MSM's fori_loop over the window's doublings does
-// (spartan_tpu/ops/msm.py:618). Entry points: g1_team.cu, g2_team.cu.
+// Team point kernels: the Jacobian add and 2^k-fold double of K3 (G1) and
+// the add, mixed add and 2^k-fold double of K4 (G2), one team of T threads
+// per point, one kernel template over both groups (the G1 mixed add's team
+// program runs only as a yardstick: the prover's is g1_ops.cu's one thread
+// a point). They replace spartan_tpu/ops/pallas_curve.py g1_add (:378,
+// _g1_add_kernel :216), g1_double (:392, _g1_double_kernel :255), g2_add
+// (:399, _g2_add_kernel :264), g2_madd (:410, _g2_madd_kernel :240) and
+// g2_double (:421, _g2_double_kernel :279); the port's doubles repeat k
+// times in one launch, as the JAX MSM's fori_loop over the window's
+// doublings does (spartan_tpu/ops/msm.py:618). Entry points: g1_team.cu,
+// g2_team.cu.
 //
 // What bounds them on an H100. At the width of the Horner steps (1 point
 // for the commitment's G1 MSM, 7-9 for the openings' G2 ones) the card is
 // idle but for one chain of dependent Fp products when one thread computes
 // the point (point.cuh): 7 for a G1 double, 16 for a G1 add or a G2
 // double, 44 for a G2 add, each a 288-product CIOS chain. At tens of
-// thousands of points, and at the mixed adds' 1 M points, they are bound by
-// 32-bit multiply throughput (2 IMADs per 32x32->64 product, 64 IMADs per SM
-// per clock); there a team's slice of shared memory (12 limbs a slot), not
-// its registers, limits how many points an SM holds.
+// thousands of points, and at the G2 mixed add's 1 M points, they are bound
+// by 32-bit multiply throughput (2 IMADs per 32x32->64 product, 64 IMADs per
+// SM per clock); there a team's slice of shared memory (12 limbs a slot),
+// not its registers, limits how many points an SM holds.
 //
 // What the design does about it. The formulas are written as stages of
 // independent Fp operations (ops/team.py, tables in team_prog.cuh): over

@@ -72,8 +72,6 @@ YARDSTICKS = {
     "g1_double_team": (1, 2),  # k, team size
     "g1_add_onethread": (2, 0),
     "g1_madd_onethread": (2, 0),
-    "g1_madd_minb2": (2, 0),
-    "g1_madd_minb3": (2, 0),
     "g1_double_onethread": (1, 0),
     "g2_add_team": (2, 1),  # team size
     "g2_madd_team": (2, 1),  # team size

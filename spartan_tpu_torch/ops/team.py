@@ -1,6 +1,8 @@
 """Stage programs of the team point kernels (``csrc/team.cuh``), written at
-the level of Fp operations: K3's G1 add, mixed add and 2^k-fold double,
-and K4's G2 add, mixed add and 2^k-fold double.
+the level of Fp operations: K3's G1 add and 2^k-fold double, and K4's G2
+add, mixed add and 2^k-fold double. The G1 mixed add's program is a
+yardstick: the prover's G1 mixed add runs one thread a point
+(``csrc/g1_ops.cu``), which was faster at its width.
 
 A team of T threads computes one point. The formulas of ``ops/curve.py``
 (dbl-2009-l, add-2007-bl, madd-2007-bl with a = 0) are written here as

@@ -50,7 +50,7 @@ extern "C" int host_g1(int op, int T, const uint32_t* p, const uint32_t* q, uint
 
 extern "C" int host_g1_madd(const uint32_t* p, const uint32_t* q, uint32_t* out,
                                       int64_t n) {
-  shim_launch((unsigned)((n + 127) / 128), 128, [&] { pt_kernel<FpC, 0, 4>(p, q, out, n); });
+  shim_launch((unsigned)((n + 127) / 128), 128, [&] { pt_kernel<FpC, 0, 3>(p, q, out, n); });
   return 0;
 }
 

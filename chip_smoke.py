@@ -18,9 +18,9 @@ exits non-zero:
    8, 4,096, 2^16 and 1,029,085 lanes, beside their one-thread versions and
    every team size; the G1 mixed add at 2,048, 2^16 and 1,043,405 lanes
    (the prove's one launch) beside its team program at every team size and
-   PR 1's one-thread kernel; the Fp inversion at
-   1, 16 and 4,096 lanes beside its one-thread version and the fp_mul chain
-   it replaced; the field kernels' device time (a CUDA graph of 20 launches
+   PR 1's one-thread kernel; the Fp inversion at 1, 16 and 4,096 lanes
+   beside its one-thread version and the fp_mul chain it replaced; the
+   field kernels' device time (a CUDA graph of 20 launches
    replayed between CUDA events) at 2^16 lanes and at the prove's most
    launched shape, and fr_mul's at every width the prove launches it at
    beside its version before the carry flag; nvidia-smi's clocks.sm

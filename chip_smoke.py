@@ -23,18 +23,28 @@ exits non-zero:
    field kernels' device time (a CUDA graph of 20 launches
    replayed between CUDA events) at 2^16 lanes and at the prove's most
    launched shape, and fr_mul's at every width the prove launches it at
-   beside its version before the carry flag; nvidia-smi's clocks.sm
-   sampled;
+   beside its version before the carry flag; then the sumcheck-phase
+   kernels: K5's Blake2s (the yardstick blake2s_batch) against hashlib,
+   the round kernels K6 and K7 at 2^16 pairs and at every width the 2^16
+   prove launches them at, and the transcript kernels K5 at the partial
+   counts the prove gives them, each bit-exact against its plain version
+   and timed by device time (CUDA graphs) beside its bound; nvidia-smi's
+   clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
    ``tests/fixtures/proof_2e5_seed3.bin``;
 4. the full-size run: log_n = 16, density 0, 4 public inputs, circuit seed
    0; setup -> index -> prove -> verify, each timed; verify must accept,
    and reject a proof with one opening byte changed and a wrong public
-   input; every kernel entry point must have launched during the run;
-   fr_mul's device time summed over the prove's shapes, from phase 2;
-5. five warm proves, then one under torch.profiler (device time by
-   kernel, the card's busy and idle share).
+   input; every kernel entry point of the path must have launched during
+   the run (K6 and K7 once a round); fr_mul's device time summed over the
+   prove's shapes, from phase 2; then the same prove through the host loop
+   (SPARTAN_DEVICE_FS=0) on the same keys must give the same bytes, with
+   both routes' spans and launches printed;
+5. for each route, warm proves, then one under torch.profiler (device time
+   by kernel, the card's busy and idle share, the copies from the device
+   to the host in the prove and inside each sumcheck span); each of the
+   device route's two phases must hold exactly one copy, at its end.
 
 The line before the last is a JSON object with one entry per kernel entry
 point; the last line is the contract object with the device.
@@ -140,7 +150,8 @@ def graph_ms(name: str, out: torch.Tensor, *ins: torch.Tensor, args=(), launches
 
 class Card:
     """Rates of an H100 SXM for the bounds: 3.35 TB/s of device memory, and 32-bit products at 64 IMADs per SM per
-    clock, two per 32x32->64 product, at the card's top SM clock."""
+    clock, two per 32x32->64 product, at the card's top SM clock; other 32-bit integer instructions (Blake2s's adds,
+    xors and rotates) at the issue limit, one warp instruction a scheduler a clock: 128 per SM per clock."""
 
     MEM_BYTES_PER_S = 3.35e12
 
@@ -150,11 +161,13 @@ class Card:
         self.max_sm_mhz = float(out.stdout.split()[0])
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.products_per_s = self.sms * 32 * self.max_sm_mhz * 1e6
+        self.int_ops_per_s = self.sms * 128 * self.max_sm_mhz * 1e6
 
-    def bound(self, products: float, nbytes: float):
+    def bound(self, products: float, nbytes: float, int_ops: float = 0.0):
         """(bound_ms, bound_by) for work of `products` 32x32->64 products
-        that must move `nbytes` bytes."""
-        t_ops = products / self.products_per_s * 1e3
+        and `int_ops` other 32-bit integer instructions that must move
+        `nbytes` bytes."""
+        t_ops = (products / self.products_per_s + int_ops / self.int_ops_per_s) * 1e3
         t_mem = nbytes / self.MEM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -567,6 +580,230 @@ def _fp_inv_row(card: Card, rng, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: the sumcheck-phase kernels K5-K7
+# ---------------------------------------------------------------------------
+
+FS_LOG_N = 16  # the full run's log_n: the rounds' widths and a round's evaluations
+PHASE_PATH = ("sc1_round", "prod2_round", "fs_sc1_emit", "fs_sc1_final", "fs_sc2_emit")
+FR_PRODUCT = 128  # 32x32->64 products of an Fr product
+# 32-bit instructions a Blake2s compression needs at least: 10 rounds x 8 G x 12 (two three-input adds,
+# two adds, four xors, four rotates), and 8 three-input xors to finish
+B2S_OPS = 968
+B2S_WORDS = (0, 1, 10, 16, 17, 32, 162)  # block edges, round 4's 32 words, a 2^16 sumcheck-1 round's 162
+B2S_COUNT = 4096  # messages a width in the check against hashlib
+B2S_TIMED = 1 << 16  # messages of 162 words in the timed launch
+
+
+def _phase_call(name: str, tensors, ints):
+    """A direct call of PHASE_KERNELS entry ``name`` on fixed tensors, with
+    none of the wrapper's checks. It counts no launch."""
+    from spartan_tpu_torch import kernels
+
+    fn = getattr(kernels.load(), "spk_" + name)
+    ptrs = [t.data_ptr() for t in tensors]
+
+    def call():
+        rc = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{name}: cudaGetLastError() = {rc}")
+
+    return call
+
+
+def _graph_ms_of(call, launches: int = 20) -> float:
+    """Device milliseconds a call: a CUDA graph of ``launches`` calls replayed
+    between CUDA events."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            call()
+    return cuda_ms(graph.replay, 5) / launches
+
+
+def _compressions(nwords: int) -> int:
+    return max(1, -(-nwords // 16))
+
+
+def _blake2s_yardstick(card: Card, rng, dev) -> None:
+    """K5's Blake2s as blake2s_batch (a thread a message) against hashlib at
+    B2S_WORDS words, every message of B2S_COUNT, and its device time for
+    B2S_TIMED messages of a 2^16 sumcheck-1 round's 162 words."""
+    import hashlib
+
+    from spartan_tpu_torch.ops import blake2s as b2s
+
+    for nwords in B2S_WORDS:
+        msgs = rng.integers(0, 1 << 32, size=(B2S_COUNT, nwords), dtype=np.uint64).astype(np.uint32)
+        got = b2s.blake2s_batch(torch.from_numpy(msgs.view(np.int32)).to(dev)).cpu().numpy().view(np.uint32)
+        bad = [i for i in range(B2S_COUNT) if got[i].astype("<u4").tobytes()
+               != hashlib.blake2s(msgs[i].astype("<u4").tobytes()).digest()]
+        check(not bad, f"blake2s_batch nwords={nwords}: {len(bad)} of {B2S_COUNT} digests differ from hashlib")
+    nwords = B2S_WORDS[-1]
+    msgs = torch.from_numpy(rng.integers(0, 1 << 32, size=(B2S_TIMED, nwords), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    out = torch.empty((B2S_TIMED, 8), dtype=torch.int32, device=dev)
+    ms = _graph_ms_of(_phase_call("blake2s_batch", [msgs, out], [B2S_TIMED, nwords]))
+    bound, by = card.bound(0, B2S_TIMED * (nwords + 8) * 4, B2S_TIMED * _compressions(nwords) * B2S_OPS)
+    print(f"blake2s_batch (yardstick) equals hashlib at {list(B2S_WORDS)} words, {B2S_COUNT} messages each; "
+          f"{B2S_TIMED} messages of {nwords} words: device {ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+
+
+def _round_inputs(name: str, pairs: int, fold: bool, rng, dev):
+    """Seeded tables entering a round of `pairs` pairs, the weight table
+    (K6), a Montgomery challenge: the wrapper's arguments."""
+    from spartan_tpu_torch.ops.field import FR
+
+    width = (4 if fold else 2) * pairs
+    fr = lambda n: _random_field(FR, max(n, 3), rng, dev)[:, :n].contiguous()  # noqa: E731
+    tabs = [fr(width) for _ in range(3 if name == "sc1_round" else 2)]
+    extra = [fr(pairs)] if name == "sc1_round" else []
+    r_mont = _random_field(FR, 4, rng, dev)[:, 3].contiguous()
+    return tabs, extra, r_mont
+
+
+def _round_cost(name: str, pairs: int, fold: bool, blocks: int):
+    """(Fr products, bytes) of a round: each table read once, the folded
+    tables and the partials written once."""
+    nt = 3 if name == "sc1_round" else 2
+    products = pairs * ((2 * nt if fold else 0) + (6 if name == "sc1_round" else 3))
+    nbytes = 32 * (nt * (4 if fold else 2) * pairs + (pairs if name == "sc1_round" else 0)
+                   + (nt * 2 * pairs if fold else 0) + 3 * blocks)
+    return products, nbytes
+
+
+def _round_row(name: str, card: Card, rng, dev) -> dict:
+    """K6 or K7 at 2^16 pairs (folding) and at every width the 2^16 prove
+    launches it at (2^15 pairs without the fold, then 2^14 to 1 folding):
+    the folded tables and the partials' sum bit-exact against the plain
+    round on the same inputs, and the device time (CUDA graph) beside the
+    bound; the row's times are those at 2^16 pairs."""
+    from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops import sumcheck as sck
+
+    dev_fn = sck.sc1_round_dev if name == "sc1_round" else sck.prod2_round_dev
+    plain_fn = sck.sc1_round if name == "sc1_round" else sck.prod2_round
+    shapes = [(1 << 16, True)] + [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(FS_LOG_N)]
+    row, widths = None, []
+    for pairs, fold in shapes:
+        tabs, extra, r_mont = _round_inputs(name, pairs, fold, rng, dev)
+        partials, *outs = dev_fn(*tabs, *extra, fold, r_mont)
+        q, *want = plain_fn(*tabs, *extra, fold, r_mont, sck.PLAIN)
+        got_q = fo.sum_mod(partials.permute(2, 0, 1))[..., 0]
+        check(torch.equal(got_q, q) and all(torch.equal(o, x) for o, x in zip(outs, want)),
+              f"{name} pairs={pairs} fold={fold}: kernel disagrees with its plain version")
+        blocks = partials.shape[1]
+        args = [*tabs, *extra, r_mont, *(outs if fold else tabs), partials]
+        call = _phase_call(name, args, [pairs, int(fold), blocks])
+        w = {"pairs": pairs, "fold": fold, "blocks": blocks, "device_ms": _graph_ms_of(call)}
+        products, nbytes = _round_cost(name, pairs, fold, blocks)
+        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes)
+        print(f"{name} pairs={pairs} fold={int(fold)} blocks={blocks} bit-exact: device {w['device_ms']:.5f} ms  "
+              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
+        widths.append(w)
+        if row is None:
+            src, rep, _nt, _ni = kernels.PHASE_KERNELS[name]
+            row = {"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
+                   "max_abs_err": 0, "ms": cuda_ms(call, 20),
+                   "plain_ms": cuda_ms(lambda: plain_fn(*tabs, *extra, fold, r_mont, sck.PLAIN), 2),
+                   "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": None,
+                   "device_ms": w["device_ms"]}
+    row["widths"] = widths
+    prove = widths[1:]
+    print(f"{name} over the 2^16 prove's {len(prove)} rounds by device time: "
+          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms",
+          flush=True)
+    return row
+
+
+def _emit_case(step: str, nblocks: int, rng, dev):
+    """Seeded arguments of a K5 entry point, as its wrapper takes them."""
+    from spartan_tpu_torch.ops.field import FR
+    from spartan_tpu_torch.protocol import fused
+
+    el = lambda: _random_field(FR, 4, rng, dev)[:, 3].contiguous()  # noqa: E731
+    words = lambda n: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    partials = _random_field(FR, 3 * nblocks + 3, rng, dev)[:, 3:].t().reshape(3, nblocks, 8).contiguous()
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
+    d = FS_LOG_N + 3
+    if step == "fs_sc1_emit":
+        return [partials, el(), fused.emit_consts(FS_LOG_N + 2, dev), el(), words(8), z(d, 8), z(8), z(8)]
+    if step == "fs_sc2_emit":
+        return [partials, words(8), z(3, 8), z(8), z(8)]
+    tabs = [_random_field(FR, 5, rng, dev)[:, 3:].contiguous() for _ in range(3)]
+    return [*tabs, el(), words(8), z(3, 8), z(3, 8)]
+
+
+def _emit_cost(step: str, args, nblocks: int):
+    """(Fr products, Blake2s compressions, bytes) of a K5 launch on these
+    arguments (after it ran: the draws its samples took are counted from the
+    chain state it wrote)."""
+    from spartan_tpu_torch.ops import fs_device as fsd
+
+    d = FS_LOG_N + 3
+    st = fsd.as_words(args[4 if step != "fs_sc2_emit" else 1].cpu().reshape(-1))
+    draws = 0  # blocks the samples drew, rejected ones included
+    for _ in range(3 if step == "fs_sc1_final" else 1):
+        _r, draws = fsd.fs_sample_fr(st, draws)
+    if step == "fs_sc1_emit":
+        return 7 * d + 3, _compressions(10 + 8 * d) + draws, 32 * (3 * nblocks + 5 * d + 3 + d + 4)
+    if step == "fs_sc2_emit":
+        return 4, _compressions(10 + 24) + draws, 32 * (3 * nblocks + 1 + 3 + 3)
+    return 6, _compressions(32) + draws, 32 * (6 + 1 + 1 + 3 + 3 + 1)
+
+
+def _emit_row(step: str, card: Card, rng, dev) -> dict:
+    """A K5 entry point against its plain version, every buffer it writes
+    bit-exact, at the partial counts the 2^16 prove gives it (fs_sc1_final at
+    its one shape), and its device time (CUDA graph) beside the bound; the
+    row's times are those of the prove's first round (256 partials)."""
+    from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.ops import sumcheck as sck
+    from spartan_tpu_torch.protocol import fused
+
+    wrap, plain = {"fs_sc1_emit": (fused.sc1_emit, fused.sc1_emit_plain),
+                   "fs_sc2_emit": (fused.sc2_emit, fused.sc2_emit_plain),
+                   "fs_sc1_final": (fused.sc1_final, fused.sc1_final_plain)}[step]
+    counts = [1] if step == "fs_sc1_final" else sorted(
+        {sck.round_blocks(1 << (FS_LOG_N - 1 - i)) for i in range(FS_LOG_N)}, reverse=True)
+    row, widths = None, []
+    for nblocks in counts:
+        args = _emit_case(step, nblocks, rng, dev)
+        mine, ref = [a.clone() for a in args], [a.clone() for a in args]
+        wrap(*mine)
+        plain(*ref)
+        check(all(torch.equal(a, b) for a, b in zip(mine, ref)),
+              f"{step} nblocks={nblocks}: kernel disagrees with its plain version")
+        products, compressions, nbytes = _emit_cost(step, ref, nblocks)
+        ints = {"fs_sc1_emit": [nblocks, FS_LOG_N + 3], "fs_sc2_emit": [nblocks], "fs_sc1_final": []}[step]
+        call = _phase_call(step, args, ints)
+        w = {"partials": nblocks, "device_ms": _graph_ms_of(call), "compressions": compressions}
+        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes, compressions * B2S_OPS)
+        print(f"{step} partials={nblocks} bit-exact: device {w['device_ms']:.5f} ms  "
+              f"bound {w['bound_ms']:.2e} ms ({w['bound_by']}; {compressions} compressions)", flush=True)
+        widths.append(w)
+        if row is None:
+            src, rep, _nt, _ni = kernels.PHASE_KERNELS[step]
+            row = {"name": step, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
+                   "max_abs_err": 0, "ms": cuda_ms(call, 20),
+                   "plain_ms": cuda_ms(lambda: plain(*[a.clone() for a in args]), 2),
+                   "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": None,
+                   "device_ms": w["device_ms"]}
+    row["widths"] = widths
+    return row
+
+
+def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
+    """The sumcheck-phase kernels: K5's Blake2s against hashlib
+    (blake2s_batch), K6 and K7 at 2^16 pairs and the prove's widths, and the
+    K5 entry points, each bit-exact against its plain version on the card."""
+    rng = np.random.default_rng(seed)
+    _blake2s_yardstick(card, rng, dev)
+    return ([_round_row(name, card, rng, dev) for name in ("sc1_round", "prod2_round")]
+            + [_emit_row(step, card, rng, dev) for step in ("fs_sc1_emit", "fs_sc2_emit", "fs_sc1_final")])
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the port's main path
 # ---------------------------------------------------------------------------
 
@@ -580,6 +817,22 @@ def _circuit(log_n: int, log_v: int, density: int, seed: int):
     )
     a, b, c = cs.to_matrices()
     return a, b, c, v, w
+
+
+def host_loop(prove):
+    """``prove`` run with SPARTAN_DEVICE_FS=0: the host-transcript route."""
+    def run():
+        old = os.environ.get("SPARTAN_DEVICE_FS")
+        os.environ["SPARTAN_DEVICE_FS"] = "0"
+        try:
+            return prove()
+        finally:
+            if old is None:
+                del os.environ["SPARTAN_DEVICE_FS"]
+            else:
+                os.environ["SPARTAN_DEVICE_FS"] = old
+
+    return run
 
 
 def phase_golden(dev) -> None:
@@ -637,7 +890,8 @@ def phase_full(dev, card: Card, log_n: int = 16):
     before = (dict(kernels.LAUNCHES), dict(kernels.DOUBLINGS),
               {k: dict(c) for k, c in kernels.LANES.items()})
     proof, prove_s = timed(lambda: MLArgumentForR1CS.prove(pk, v, w, pp))
-    prove_counts = {k: kernels.LAUNCHES[k] - before[0].get(k, 0) for k in kernels.KERNELS}
+    device_spans = dict(timers.SPANS)
+    prove_counts = {k: kernels.LAUNCHES[k] - before[0].get(k, 0) for k in (*kernels.KERNELS, *PHASE_PATH)}
     prove_doublings = {k: d - before[1].get(k, 0) for k, d in kernels.DOUBLINGS.items()}
     prove_widths = {}  # kernel -> its three most launched (lanes, k) in the prove
     for k, counts in kernels.LANES.items():
@@ -645,7 +899,7 @@ def phase_full(dev, card: Card, log_n: int = 16):
         top = sorted(((m, key) for key, m in diff.items() if m), reverse=True)[:3]
         prove_widths[k] = [[list(key), m] for m, key in top]
     ok, verify_s = timed(lambda: MLArgumentForR1CS.verify(pk.vk(), v, proof, vp))
-    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in (*kernels.KERNELS, *PHASE_PATH)}
     check(ok is True, "verify rejected the honest 2^16 proof")
     data = proof.serialize()
     print(f"full: setup {setup_s:.3f} s  index {index_s:.3f} s  prove {prove_s:.3f} s  "
@@ -663,13 +917,32 @@ def phase_full(dev, card: Card, log_n: int = 16):
               flush=True)
     bounds = {}  # the bound of one launch at the most launched shape; every lane counted
     for k, top in prove_widths.items():
+        if k not in LANE_BYTES:  # the sumcheck-phase kernels: phase 2 prints theirs
+            continue
         (lanes, *reps), _m = top[0]
         nbytes = lanes * LANE_BYTES[k]
         bounds[k] = card.bound(PRODUCTS.get(k, 0) * lanes * (reps[0] if reps else 1), nbytes)
     print("full: prove, bound at the most launched shape [ms, by] " + json.dumps(bounds),
           flush=True)
-    for k in kernels.KERNELS:
+    for k in prove_counts:
         check(prove_counts[k] > 0, f"kernel {k} never launched during prove")
+    for k in PHASE_PATH[:2]:
+        check(prove_counts[k] == log_n, f"{k}: {prove_counts[k]} launches, not one a round")
+    check(any("(fused)" in k for k in device_spans), "the prove did not take the device-resident transcript")
+
+    # the host loop on the same pk and pp: the same bytes
+    counts0 = dict(kernels.LAUNCHES)
+    timers.reset()
+    host_proof, host_s = timed(host_loop(lambda: MLArgumentForR1CS.prove(pk, v, w, pp)))
+    host_counts = {k: kernels.LAUNCHES[k] - counts0.get(k, 0) for k in prove_counts}
+    check(host_proof.serialize() == data, "the host loop's 2^16 proof differs from the device route's")
+    check(not any("(fused)" in k for k in timers.SPANS), "SPARTAN_DEVICE_FS=0 did not take the host loop")
+    print(f"full: the host loop's proof (SPARTAN_DEVICE_FS=0, same pk and pp) equals the device route's; "
+          f"prove wall: device route (the first prove) {prove_s:.3f} s, host loop {host_s:.3f} s", flush=True)
+    print("full: launches a prove, device route " + json.dumps({k: m for k, m in prove_counts.items() if m})
+          + "; host loop " + json.dumps({k: m for k, m in host_counts.items() if m}), flush=True)
+    print("full: spans, host loop " + json.dumps({k: round(x, 4) for k, x in timers.SPANS.items()}),
+          flush=True)
 
     # one byte of the last opening proof changed: a low x byte of its first
     # G2 point (usually no longer on the curve), or the byte holding the
@@ -687,14 +960,21 @@ def phase_full(dev, card: Card, log_n: int = 16):
     return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp)
 
 
-def phase_profile(prove, warm: int = 5) -> None:
+SUMCHECK_SPANS = ("Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)", "Prove Sumcheck 1", "Prove 4",
+                  "Prove Sumcheck 2")
+
+
+def phase_profile(prove, route: str, warm: int = 5) -> dict:
     """Warm proves on the host clock, then one under torch.profiler: device
-    time by kernel, and the share of the prove's wall time the card was busy
-    (the union of its kernel and copy intervals)."""
+    time by kernel, the share of the prove's wall time the card was busy
+    (the union of its kernel and copy intervals), and the copies from the
+    device to the host in the prove and inside each sumcheck span. Returns
+    those counts by span."""
     from torch.profiler import ProfilerActivity, profile
 
     from spartan_tpu_torch import timers
 
+    tag = f"profile [{route}]:"
     walls = []
     for _ in range(warm):
         timers.reset()
@@ -703,9 +983,9 @@ def phase_profile(prove, warm: int = 5) -> None:
         prove()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-    print("profile: warm prove wall s " + json.dumps([round(x, 4) for x in walls])
+    print(f"{tag} warm prove wall s " + json.dumps([round(x, 4) for x in walls])
           + f" median {sorted(walls)[len(walls) // 2]:.4f}", flush=True)
-    print("profile: spans of the last warm prove " +
+    print(f"{tag} spans of the last warm prove " +
           json.dumps({k: round(s, 4) for k, s in timers.SPANS.items()}), flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -713,28 +993,36 @@ def phase_profile(prove, warm: int = 5) -> None:
         prove()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    spans, by_name = [], {}
+    spans, by_name, ranges, copies = [], {}, {}, []
+    labels = set(timers.SPANS)  # the spans' record_function ranges, on the device timeline too
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name in SUMCHECK_SPANS:
+                ranges[e.name] = (e.time_range.start, e.time_range.end)
+            continue
+        if getattr(e, "is_user_annotation", False) or e.name in labels:
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + (b - a), cnt + 1)
+        if "DtoH" in e.name:
+            copies.append(a)
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    if not spans:
-        print("profile: the profiler recorded no device activity; device time not measured",
-              flush=True)
-        return
+    check(bool(spans), f"{tag} the profiler recorded no device activity")
     busy_s = busy / 1e6
-    print(f"profile: prove under the profiler {wall:.4f} s, card busy {busy_s:.4f} s "
+    print(f"{tag} prove under the profiler {wall:.4f} s, card busy {busy_s:.4f} s "
           f"({100 * busy_s / wall:.1f} %), idle {100 * (1 - busy_s / wall):.1f} %", flush=True)
+    inside = {k: sum(a <= t <= b for t in copies) for k, (a, b) in ranges.items()}
+    print(f"{tag} copies device to host: {len(copies)} in the prove; inside the sumcheck spans "
+          + json.dumps(inside) + "; span lengths under the profiler ms "
+          + json.dumps({k: round((b - a) / 1e3, 3) for k, (a, b) in ranges.items()}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:24]
     for name, (tot, cnt) in top:
-        print(f"profile: {tot / 1e3:9.3f} ms {cnt:6d} x  {100 * tot / busy:5.1f} %  {name[:90]}",
+        print(f"{tag} {tot / 1e3:9.3f} ms {cnt:6d} x  {100 * tot / busy:5.1f} %  {name[:90]}",
               flush=True)
     entries = {}
     for name, (tot, cnt) in by_name.items():
@@ -742,7 +1030,8 @@ def phase_profile(prove, warm: int = 5) -> None:
         if entry is not None:
             ms, n = entries.get(entry, (0.0, 0))
             entries[entry] = (ms + tot / 1e3, n + cnt)
-    print("profile: device time by entry point [ms, launches] " + json.dumps(entries), flush=True)
+    print(f"{tag} device time by entry point [ms, launches] " + json.dumps(entries), flush=True)
+    return inside
 
 
 def _entry_point(kernel: str):
@@ -756,6 +1045,9 @@ def _entry_point(kernel: str):
     m = re.search(r"pt_kernel<(Fe<FpParams>|FpC|Fp2), (\d)", kernel)
     if m:
         return ("g2_" if m.group(1) == "Fp2" else "g1_") + ("madd", "add", "double")[int(m.group(2))]
+    m = re.search(r"\b(sc1_round|prod2_round|fs_sc1_emit|fs_sc1_final|fs_sc2_emit|blake2s_batch)_kernel", kernel)
+    if m:
+        return m.group(1)
     if "fe_mul_cc_kernel<FrParams>" in kernel:
         return "fr_mul"
     m = re.search(r"fe_binary_kernel<(Fr|Fp)Params, (\d)>", kernel)
@@ -801,12 +1093,17 @@ def main() -> int:
     card = Card()
     with ClockSampler() as clocks:
         rows = phase_kernels(dev, card)
+        rows += phase_fs_kernels(dev, card)
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
     launches, shapes, prove = phase_full(dev, card)
     _fr_mul_in_prove(rows, shapes["fr_mul"])
-    phase_profile(prove)
+    inside = phase_profile(prove, "device route")
+    for label in SUMCHECK_SPANS[:2]:
+        check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one "
+              "at the end of the phase")
+    phase_profile(host_loop(prove), "host loop", warm=3)
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"kernel {row['name']} never launched in the main path")

@@ -26,7 +26,10 @@ import sys
 import time
 
 # timers spans whose medians are reported
-SPANS = ("commit MSM", "open G2 MSMs", "Prove Sumcheck 1", "Prove Sumcheck 2")
+# (a checkout proves its sumchecks through one of the two routes: the host
+# loop's spans or the device-resident phases'; the other side's read nan)
+SPANS = ("commit MSM", "open G2 MSMs", "Prove Sumcheck 1", "Prove Sumcheck 2",
+         "Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)")
 
 
 def child(root: str) -> None:

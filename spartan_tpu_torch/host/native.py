@@ -72,6 +72,8 @@ def load():
     lib.spartan_fs_free.argtypes = [ctypes.c_void_p]
     lib.spartan_fs_feed.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
     lib.spartan_fs_next_bytes.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+    lib.spartan_fs_get_state.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.spartan_fs_set_state.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     lib.spartan_ser_matrix.restype = ctypes.c_uint64
     lib.spartan_ser_matrix.argtypes = [
         u64p, ctypes.c_uint64, ctypes.c_char_p, u64p, ctypes.c_uint64, ctypes.c_char_p,
@@ -108,6 +110,17 @@ class NativeFsRng:
         out = ctypes.create_string_buffer(n)
         self._lib.spartan_fs_next_bytes(self._ptr, out, n)
         return out.raw
+
+    def get_state(self) -> bytes:
+        out = ctypes.create_string_buffer(32)
+        self._lib.spartan_fs_get_state(self._ptr, out)
+        return out.raw
+
+    def set_state(self, state: bytes) -> None:
+        """Overwrite the chain state; resets the output stream."""
+        if len(state) != 32:
+            raise ValueError(f"chain state is 32 bytes, got {len(state)}")
+        self._lib.spartan_fs_set_state(self._ptr, state)
 
 
 def _fp_bytes(v: int, buf: bytearray, off: int) -> None:

@@ -20,6 +20,13 @@ the launches of each kernel by lane count and int arguments.
 kernel against other versions of it (the team point kernels at each team
 size, the one-thread G1 and G2 kernels and Fp inversion, the Fr product
 before the carry flag); they count no launches.
+
+``PHASE_KERNELS`` are the kernels of the device-resident sumcheck phases,
+which replace JAX functions that are not Pallas kernels: the round kernels
+K6 and K7 (``csrc/sumcheck_ops.cu``), the transcript kernels K5
+(``csrc/fs_ops.cu``) and K5's Blake2s as a batch (``blake2s_batch``, which
+only ``chip_smoke.py`` calls). Their arguments are tensors of any shape and
+ints; ``call`` launches them and counts like ``launch``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,16 @@ YARDSTICKS = {
     "g2_madd_onethread": (2, 0),
     "g2_double_onethread": (1, 0),
     "fp_inv_thread": (1, 0),
+}
+
+# entry point -> (source file, JAX function replaced, tensor arguments, int arguments)
+PHASE_KERNELS = {
+    "sc1_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 9, 3),
+    "prod2_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:97", 6, 3),
+    "fs_sc1_emit": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:111", 8, 2),
+    "fs_sc1_final": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:137", 7, 0),
+    "fs_sc2_emit": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:154", 5, 1),
+    "blake2s_batch": ("fs_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -197,6 +214,10 @@ def load():
         fn = getattr(lib, "spk_" + name)
         fn.argtypes = [vp] * (n_in + 1) + [i64] + [i32] * n_int + [vp]
         fn.restype = ctypes.c_int
+    for name, (_src, _rep, n_t, n_int) in PHASE_KERNELS.items():
+        fn = getattr(lib, "spk_" + name)
+        fn.argtypes = [vp] * n_t + [i64] * n_int + [vp]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -238,3 +259,28 @@ def launch(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()) -> torch.T
     if name.endswith("_double"):
         DOUBLINGS[name] += args[0]
     return out
+
+
+def call(name: str, tensors, ints, key) -> None:
+    """Launch ``PHASE_KERNELS`` entry ``name`` on int32 CUDA tensors, all on
+    one device and contiguous, with its int arguments. ``key`` is the
+    launch's entry in ``LANES`` (its width)."""
+    _src, _rep, n_t, n_int = PHASE_KERNELS[name]
+    if len(tensors) != n_t or len(ints) != n_int:
+        raise ValueError(f"{name}: expected {n_t} tensors and {n_int} int arguments")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: tensor on {t.device}, kernel needs one CUDA device")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: dtype {t.dtype}, kernel needs torch.int32 words")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous tensor")
+    fn = getattr(load(), "spk_" + name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints], stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{name}: cudaGetLastError() = {rc} at launch ({key})")
+    LAUNCHES[name] += 1
+    LANES[name][tuple(key)] += 1

@@ -2,66 +2,145 @@
 
 Counterpart of ``spartan_tpu/ops/sumcheck.py`` (``sc1_round`` :77,
 ``prod2_round`` :97), without the fixed-width tail padding that existed for
-XLA compile cost. Each round returns its evaluations at t = 0, 1, 2 as an
-(8, 3) Montgomery tensor; the protocol layer decodes them.
+XLA compile cost.
+
+Two forms of each round:
+
+- ``sc1_round``/``prod2_round`` return the evaluations at t = 0, 1, 2 as an
+  (8, 3) Montgomery tensor, from the Fr kernels K1 (one launch an operation,
+  a reduction an evaluation) on the card; the host-transcript route decodes
+  them every round.
+- ``sc1_round_dev``/``prod2_round_dev``, the rounds of the device-resident
+  phases (``protocol/fused.py``): on a CUDA tensor one launch of K6 or K7
+  (``csrc/sumcheck.cuh``) folds and evaluates and writes one partial a block
+  and evaluation, (3, blocks, 8); the transcript kernel adds them. The
+  challenge is a device tensor. On a CPU tensor they are the plain rounds
+  composed with ``sum_mod``: one partial.
+
+``PLAIN`` runs a round on the plain versions of the field operations on any
+device: it is what K6 and K7 are held against on the card.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.ops import field as fo
-from spartan_tpu_torch.ops import mle
 from spartan_tpu_torch.ops.field import FR
+
+MAX_BLOCKS = 256  # the round kernels' grid at most (csrc/sumcheck.cuh, kMaxBlocks)
+THREADS = 128  # a round kernel's block (kThreads)
+
+
+class FrOps:
+    """Fr add, sub and Montgomery product, and the fold built from them."""
+
+    def __init__(self, add, sub, mul):
+        self.add, self.sub, self.mul = add, sub, mul
+
+    def fold(self, table: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """out[b] = t[2b] + r (t[2b+1] - t[2b]), as ``mle.fold``."""
+        even, odd = _halves(table)
+        return self.add(even, self.mul(self.sub(odd, even), r.reshape(FR.nlimb, 1)))
+
+
+K1 = FrOps(partial(fo.add, FR), partial(fo.sub, FR), partial(fo.mont_mul, FR))
+PLAIN = FrOps(partial(fo.add_plain, FR), partial(fo.sub_plain, FR), partial(fo.mont_mul_plain, FR))
 
 
 def _halves(tab):
     return tab[..., 0::2], tab[..., 1::2]
 
 
-def sc1_evals3(az, bz, cz, s_table) -> torch.Tensor:
+def sc1_evals3(az, bz, cz, s_table, ops: FrOps = K1) -> torch.Tensor:
     """sum_b S[b] (Az_t Bz_t - Cz_t)[b] at t = 0, 1, 2."""
     abc = torch.stack([az, bz, cz], dim=1)  # (8, 3, N)
     e, o = _halves(abc)
-    d = fo.sub(FR, o, e)
+    d = ops.sub(o, e)
     outs = []
     cur = e
     for t in range(3):
         if t > 0:
-            cur = fo.add(FR, cur, d)
-        val = fo.sub(FR, fo.mont_mul(FR, cur[:, 0], cur[:, 1]), cur[:, 2])
-        outs.append(mle.sum_mod(fo.mont_mul(FR, val, s_table)))
+            cur = ops.add(cur, d)
+        val = ops.sub(ops.mul(cur[:, 0], cur[:, 1]), cur[:, 2])
+        outs.append(fo.sum_mod(ops.mul(val, s_table)))
     return torch.cat(outs, dim=1)
 
 
-def sc1_round(az, bz, cz, s_table, do_fold: bool, r):
+def sc1_round(az, bz, cz, s_table, do_fold: bool, r, ops: FrOps = K1):
     """One Spartan sumcheck-1 round: optional fold by r, then the inner
     quadratic. Returns ((8, 3) evals, az', bz', cz')."""
     if do_fold:
-        folded = mle.fold(torch.stack([az, bz, cz], dim=1).reshape(FR.nlimb, -1), r)
+        folded = ops.fold(torch.stack([az, bz, cz], dim=1).reshape(FR.nlimb, -1), r)
         n = az.shape[-1] // 2
         az, bz, cz = folded[:, :n], folded[:, n : 2 * n], folded[:, 2 * n :]
-    return sc1_evals3(az, bz, cz, s_table), az, bz, cz
+    return sc1_evals3(az, bz, cz, s_table, ops), az, bz, cz
 
 
-def prod2_evals3(w, z) -> torch.Tensor:
+def prod2_evals3(w, z, ops: FrOps = K1) -> torch.Tensor:
     """Degree-2 round evaluations of sum_b w(t, b) z(t, b) at t = 0, 1, 2."""
     wz = torch.stack([w, z], dim=1)
     e, o = _halves(wz)
-    d = fo.sub(FR, o, e)
+    d = ops.sub(o, e)
     outs = []
     cur = e
     for t in range(3):
         if t > 0:
-            cur = fo.add(FR, cur, d)
-        outs.append(mle.sum_mod(fo.mont_mul(FR, cur[:, 0], cur[:, 1])))
+            cur = ops.add(cur, d)
+        outs.append(fo.sum_mod(ops.mul(cur[:, 0], cur[:, 1])))
     return torch.cat(outs, dim=1)
 
 
-def prod2_round(w, z, do_fold: bool, r):
+def prod2_round(w, z, do_fold: bool, r, ops: FrOps = K1):
     """One degree-2 round for sum_b w(t, b) z(t, b)."""
     if do_fold:
         n = w.shape[-1] // 2
-        folded = mle.fold(torch.cat([w, z], dim=1), r)
+        folded = ops.fold(torch.cat([w, z], dim=1), r)
         w, z = folded[:, :n], folded[:, n:]
-    return prod2_evals3(w, z), w, z
+    return prod2_evals3(w, z, ops), w, z
+
+
+def round_blocks(pairs: int) -> int:
+    """The round kernels' grid for ``pairs`` pairs: the partials they write."""
+    return max(1, min(MAX_BLOCKS, -(-pairs // THREADS)))
+
+
+def _as_partials(q: torch.Tensor) -> torch.Tensor:
+    """(8, 3) sums -> one partial an evaluation, (3, 1, 8)."""
+    return q.t().reshape(3, 1, FR.nlimb).contiguous()
+
+
+def _device_round(name: str, tables, extra, do_fold: bool, r_mont):
+    width = tables[0].shape[-1]
+    pairs = width // 4 if do_fold else width // 2
+    outs = [torch.empty((FR.nlimb, 2 * pairs), dtype=torch.int32, device=t.device) for t in tables]
+    if not do_fold:
+        outs = list(tables)  # not written
+    blocks = round_blocks(pairs)
+    partials = torch.empty((3, blocks, FR.nlimb), dtype=torch.int32, device=tables[0].device)
+    kernels.call(name, [*tables, *extra, r_mont, *outs, partials], [pairs, int(do_fold), blocks],
+                 key=(pairs, int(do_fold)))
+    return partials, outs
+
+
+def sc1_round_dev(az, bz, cz, s_table, do_fold: bool, r_mont):
+    """A sumcheck-1 round of the device-resident phase: (partials (3, B, 8)
+    Montgomery, az', bz', cz'). ``r_mont`` (8,) is the Montgomery challenge
+    in device memory (not read when ``do_fold`` is False)."""
+    if az.device.type == "cpu":
+        q, az, bz, cz = sc1_round(az, bz, cz, s_table, do_fold, r_mont, PLAIN)
+        return _as_partials(q), az, bz, cz
+    partials, (az, bz, cz) = _device_round("sc1_round", (az, bz, cz), (s_table,), do_fold, r_mont)
+    return partials, az, bz, cz
+
+
+def prod2_round_dev(w, z, do_fold: bool, r_mont):
+    """A sumcheck-2 round of the device-resident phase: (partials, w', z')."""
+    if w.device.type == "cpu":
+        q, w, z = prod2_round(w, z, do_fold, r_mont, PLAIN)
+        return _as_partials(q), w, z
+    partials, (w, z) = _device_round("prod2_round", (w, z), (), do_fold, r_mont)
+    return partials, w, z

@@ -1,9 +1,16 @@
 """Non-interactive argument driver: ``MLArgumentForR1CS``.
 
-Counterpart of ``spartan_tpu/protocol/argument.py`` along its host
-Fiat-Shamir route (:125-177): the transcript absorbs the serialized A, B, C
-and the public input, then every prover message, and samples each verifier
-challenge from the same stream. The proof bytes equal the JAX package's.
+Counterpart of ``spartan_tpu/protocol/argument.py``: the transcript absorbs
+the serialized A, B, C and the public input, then every prover message, and
+samples each verifier challenge from the same stream. The proof bytes equal
+the JAX package's.
+
+Two routes through the sumchecks, with the same bytes, chosen as the JAX
+package chooses (:32-36): by default each sumcheck phase, prover round 4
+included, runs with the transcript on the device (``protocol/fused.py``),
+and the host transcript resumes from the chain state the phase returns;
+with ``SPARTAN_DEVICE_FS`` set to ``0`` or ``false`` the host samples every
+challenge after decoding every round (the host loop).
 
 ``setup`` and ``index`` build on the card unless the caller names another
 device (the CPU tests pass ``"cpu"``); ``prove`` runs on the device of
@@ -12,11 +19,14 @@ device (the CPU tests pass ``"cpu"``); ``prove`` runs on the device of
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 from spartan_tpu_torch.commitment import PublicParameter, VerifierParameter, keygen
 from spartan_tpu_torch.models.r1cs import Matrix
+from spartan_tpu_torch.protocol import fused
 from spartan_tpu_torch.protocol import prover as pr
+from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol import verifier as vr
 from spartan_tpu_torch.protocol.indexer import IndexPK, IndexVK, index as _index
 from spartan_tpu_torch.protocol.proof import Proof
@@ -24,6 +34,12 @@ from spartan_tpu_torch.timers import span
 from spartan_tpu_torch.utils import serialize as ser
 from spartan_tpu_torch.utils.errors import invalid_arg
 from spartan_tpu_torch.utils.transcript import Blake2sRng
+
+
+def _use_device_fs() -> bool:
+    """The device-resident transcript unless SPARTAN_DEVICE_FS is "0" or
+    "false" (the JAX package's switch)."""
+    return os.environ.get("SPARTAN_DEVICE_FS", "1") not in ("0", "false")
 
 
 def _transcript(matrices, v: List[int]) -> Blake2sRng:
@@ -71,43 +87,62 @@ class MLArgumentForR1CS:
             ps, pm3 = pr.prover_third_round(ps, tor)
         fs.feed(pm3.serialize())
 
-        with span("Prove Sumcheck 1"):
-            sc1_msgs = []
-            v_msg = None
-            for _ in range(log_n - 1):
+        device_fs = _use_device_fs()
+        if device_fs:
+            with span("Prove Sumcheck 1 (fused)"):
+                res1 = fused.sc1_phase(ps.az, ps.bz, ps.cz, ps.suffix, ps.tor, fs.get_state())
+            sc1_msgs = [sc.ProverMsg(evaluations=e) for e in res1.evals]
+            fs.set_state(res1.state)
+            pm4 = pr.ProverFourthMessage(*res1.vabc)
+            ps = pr.ProverFifthState(pk=pk, z=ps.z, r_x=res1.rs)
+            r_a, r_b, r_c = res1.rabc
+        else:
+            with span("Prove Sumcheck 1"):
+                sc1_msgs = []
+                v_msg = None
+                for _ in range(log_n - 1):
+                    ps, pm = pr.prove_first_sumcheck_round(ps, v_msg)
+                    fs.feed(pm.serialize())
+                    sc1_msgs.append(pm)
+                    v_msg = vr.sample_verify_first_sumcheck_ongoing_round(fs)
                 ps, pm = pr.prove_first_sumcheck_round(ps, v_msg)
-                fs.feed(pm.serialize())
-                sc1_msgs.append(pm)
-                v_msg = vr.sample_verify_first_sumcheck_ongoing_round(fs)
-            ps, pm = pr.prove_first_sumcheck_round(ps, v_msg)
-        fs.feed(pm.serialize())
-        sc1_msgs.append(pm)
-        vm3 = vr.sample_verify_first_sumcheck_final_round(fs)
+            fs.feed(pm.serialize())
+            sc1_msgs.append(pm)
+            vm3 = vr.sample_verify_first_sumcheck_final_round(fs)
 
-        with span("Prove 4"):
-            ps, pm4 = pr.prove_fourth_round(ps, vm3.last_random_point)
-        fs.feed(pm4.serialize())
-        vm4 = vr.sample_verify_fourth_round(fs)
+            with span("Prove 4"):
+                ps, pm4 = pr.prove_fourth_round(ps, vm3.last_random_point)
+            fs.feed(pm4.serialize())
+            vm4 = vr.sample_verify_fourth_round(fs)
+            r_a, r_b, r_c = vm4.r_a, vm4.r_b, vm4.r_c
 
         with span("Prove 5"):
-            ps, pm5 = pr.prove_fifth_round(ps, vm4.r_a, vm4.r_b, vm4.r_c)
+            ps, pm5 = pr.prove_fifth_round(ps, r_a, r_b, r_c)
         fs.feed(pm5.serialize())
 
-        with span("Prove Sumcheck 2"):
-            sc2_msgs = []
-            v_msg = None
-            for _ in range(log_n - 1):
+        if device_fs:
+            with span("Prove Sumcheck 2 (fused)"):
+                res2 = fused.sc2_phase(ps.w_cur, ps.z_cur, fs.get_state())
+            sc2_msgs = [sc.ProverMsg(evaluations=e) for e in res2.evals]
+            fs.set_state(res2.state)
+            ps.randomness = res2.rs[:-1]
+            last2 = res2.rs[-1]
+        else:
+            with span("Prove Sumcheck 2"):
+                sc2_msgs = []
+                v_msg = None
+                for _ in range(log_n - 1):
+                    ps, pm = pr.prove_second_sumcheck_round(ps, v_msg)
+                    fs.feed(pm.serialize())
+                    sc2_msgs.append(pm)
+                    v_msg = vr.sample_verify_second_sumcheck_ongoing_round(fs)
                 ps, pm = pr.prove_second_sumcheck_round(ps, v_msg)
-                fs.feed(pm.serialize())
-                sc2_msgs.append(pm)
-                v_msg = vr.sample_verify_second_sumcheck_ongoing_round(fs)
-            ps, pm = pr.prove_second_sumcheck_round(ps, v_msg)
-        fs.feed(pm.serialize())
-        sc2_msgs.append(pm)
-        vm5 = vr.sample_verify_second_sumcheck_final_round(fs)
+            fs.feed(pm.serialize())
+            sc2_msgs.append(pm)
+            last2 = vr.sample_verify_second_sumcheck_final_round(fs).last_random_point
 
         with span("Prove 6"):
-            pm6 = pr.prove_sixth_round(ps, vm5.last_random_point, pp)
+            pm6 = pr.prove_sixth_round(ps, last2, pp)
 
         return Proof(
             prover_first_message=pm1,

@@ -4,8 +4,10 @@ Counterpart of ``spartan_tpu/protocol/prover.py`` (:173-371), the same
 typed state machine and messages. Sumcheck 1 evaluates the inner quadratic
 sum_b eq(tor_{i+1..}, b) (Az Bz - Cz)(t, b) at t = 0, 1, 2 on the device
 and the host extends the exact cubic pre * l_i(t) * q(t) to the
-log_n + 3 points of the wire format. Device work follows the device of
-``pp`` and of the index.
+log_n + 3 points of the wire format. These sumcheck rounds are the host
+loop's; by default ``argument.prove`` runs both sumcheck phases and round
+4 with the transcript on the device instead (``protocol/fused.py``). Device
+work follows the device of ``pp`` and of the index.
 """
 
 from __future__ import annotations

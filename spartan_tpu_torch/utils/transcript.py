@@ -7,6 +7,9 @@
 
 Fr sampling is arkworks' ``UniformRand``: four LE u64 limbs, the top bit
 masked to the 255-bit width, rejected and redrawn if >= r.
+
+``get_state``/``set_state`` hand the chain state to the device-resident
+transcript (``protocol/fused.py``) and take it back after a sumcheck phase.
 """
 
 from __future__ import annotations
@@ -46,6 +49,25 @@ class Blake2sRng:
             self._native.feed(data)
             return
         self._state = _blake2s(self._state + data)
+        self._counter = 0
+        self._buffer = b""
+
+    def get_state(self) -> bytes:
+        """The 32-byte chain state. Only meaningful at a feed boundary (no
+        output block partly consumed), the one place the prover hands the
+        transcript to the device."""
+        if self._native is not None:
+            return self._native.get_state()
+        return self._state
+
+    def set_state(self, state: bytes) -> None:
+        """Resume from a chain state the device advanced; resets the stream."""
+        if len(state) != 32:
+            raise ValueError(f"chain state is 32 bytes, got {len(state)}")
+        if self._native is not None:
+            self._native.set_state(state)
+            return
+        self._state = bytes(state)
         self._counter = 0
         self._buffer = b""
 

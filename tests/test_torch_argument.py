@@ -1,4 +1,7 @@
-"""The port's whole argument at 2^5 (circuit seed 3, key seed 7).
+"""The port's whole argument at 2^5 (circuit seed 3, key seed 7), proved
+through the default route, the device-resident transcript (on the CPU, its
+plain versions; tests/test_torch_fs_device.py holds it against the host
+loop):
 
 - its proof bytes equal the golden fixture tests/fixtures/proof_2e5_seed3.bin;
 - spartan_tpu's own Proof.deserialize + MLArgumentForR1CS.verify accept it;
@@ -14,6 +17,7 @@ import torch
 
 from spartan_tpu.host import field as hf
 from spartan_tpu.models.synthesizer import generate_circuit_with_random_input
+from spartan_tpu_torch import timers
 from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
 from spartan_tpu_torch.protocol.proof import Proof
 from spartan_tpu_torch.utils.errors import SpartanError
@@ -41,8 +45,20 @@ def instance():
     a, b, c = cs.to_matrices()
     pp, vp = MLArgumentForR1CS.setup(log_n, SeededFr(7), "cpu")
     pk = MLArgumentForR1CS.index(a, b, c, "cpu")
+    timers.reset()
     proof = MLArgumentForR1CS.prove(pk, v, w, pp)
+    ROUTE_SPANS.extend(timers.SPANS)
     return (a, b, c), v, pk, vp, proof
+
+
+ROUTE_SPANS = []  # the spans of the fixture's prove
+
+
+def test_prove_takes_the_device_transcript_by_default(instance):
+    """The proof these tests hold came through the device-resident sumcheck
+    phases, the default route (SPARTAN_DEVICE_FS unset)."""
+    assert "Prove Sumcheck 1 (fused)" in ROUTE_SPANS and "Prove Sumcheck 2 (fused)" in ROUTE_SPANS
+    assert "Prove Sumcheck 1" not in ROUTE_SPANS
 
 
 def test_proof_bytes_equal_golden_fixture(instance):

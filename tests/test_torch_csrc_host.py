@@ -3,8 +3,12 @@ behind ``tests/cuda_host_shim.h`` and run on CPU threads, against the plain
 PyTorch versions: the team point kernels (G1 and G2 add, mixed add and
 2^k-fold double, at every team size, edge lanes included), the G1 mixed add
 (one thread a point on the carry flag), the carry-flag Montgomery product
-of fr_mul (and its Fp instantiation, the point kernels' product) and both
-versions of the Fp Fermat inversion. This holds the kernels' own arithmetic, tables and edge rules on
+of fr_mul (and its Fp instantiation, the point kernels' product), both
+versions of the Fp Fermat inversion, and the sumcheck-phase kernels: the
+Blake2s of the transcript kernels against ``hashlib``, their sampler against
+the host stream, the round kernels K6 and K7 (over several blocks, so the
+partial sums run) and the transcript kernels K5 against their plain
+versions. This holds the kernels' own arithmetic, tables and edge rules on
 the CPU. Every ``.cu`` file, entry points and launches included, also goes
 through ``g++ -fsyntax-only`` with the CUDA runtime stubbed, which finds a
 C++ error before a build on the card; whether nvcc accepts them, and how
@@ -12,12 +16,14 @@ fast they run, only ``chip_smoke.py`` on the card can say.
 """
 
 import ctypes
+import hashlib
 import pathlib
 import random
 import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,6 +41,8 @@ ENTRY = r"""
 #include "fp_inv.cuh"
 #include "point.cuh"
 #include "fr.cuh"
+#include "fs.cuh"
+#include "sumcheck.cuh"
 
 // op: 0 double, 1 add, 2 mixed add (team::Op); T: team size
 #define CASE(G, TT, OP) \
@@ -73,6 +81,52 @@ extern "C" int host_g2(int op, int T, const uint32_t* p, const uint32_t* q, uint
   return 1;
 }
 
+extern "C" int host_blake2s_batch(const uint32_t* msgs, uint32_t* out, int64_t count, int nwords) {
+  shim_launch((unsigned)((count + 31) / 32), 32, [&] { blake2s_batch_kernel(msgs, out, count, nwords); });
+  return 0;
+}
+
+extern "C" uint32_t host_sample_fr(const uint32_t* state, uint32_t counter, uint32_t* out) {
+  return b2s::sample_fr<FrParams>(state, counter, out);
+}
+
+// The round kernels at any block size and grid (the card's are sck::kThreads
+// and round_blocks); t: the tables' inputs then outputs, as the entry points.
+extern "C" int host_round(int sc1, const uint32_t* const* t, uint32_t* partials, int64_t pairs, int fold,
+                          int threads, int blocks) {
+  if (sc1)
+    shim_launch(blocks, threads, [&] {
+      sc1_round_kernel(t[0], t[1], t[2], t[3], t[4], (uint32_t*)t[5], (uint32_t*)t[6], (uint32_t*)t[7],
+                       partials, pairs, fold);
+    });
+  else
+    shim_launch(blocks, threads, [&] {
+      prod2_round_kernel(t[0], t[1], t[2], (uint32_t*)t[3], (uint32_t*)t[4], partials, pairs, fold);
+    });
+  return 0;
+}
+
+extern "C" int host_fs_sc1_emit(const uint32_t* partials, const uint32_t* tor_i, const uint32_t* consts,
+                                uint32_t* pre, uint32_t* state, uint32_t* evals, uint32_t* r_out,
+                                uint32_t* r_mont, int64_t nblocks, int D) {
+  shim_launch(1, fs::kThreads, [&] {
+    fs_sc1_emit_kernel(partials, tor_i, consts, pre, state, evals, r_out, r_mont, nblocks, D);
+  });
+  return 0;
+}
+
+extern "C" int host_fs_sc1_final(const uint32_t* az, const uint32_t* bz, const uint32_t* cz,
+                                 const uint32_t* r_mont, uint32_t* state, uint32_t* vabc, uint32_t* rabc) {
+  shim_launch(1, 32, [&] { fs_sc1_final_kernel(az, bz, cz, r_mont, state, vabc, rabc); });
+  return 0;
+}
+
+extern "C" int host_fs_sc2_emit(const uint32_t* partials, uint32_t* state, uint32_t* evals, uint32_t* r_out,
+                                uint32_t* r_mont, int64_t nblocks) {
+  shim_launch(1, fs::kThreads, [&] { fs_sc2_emit_kernel(partials, state, evals, r_out, r_mont, nblocks); });
+  return 0;
+}
+
 extern "C" int host_fp_inv(int warp, const uint32_t* a, uint32_t* out, int64_t n) {
   using namespace fpinv;
   if (warp)
@@ -108,6 +162,13 @@ def lib(tmp_path_factory):
     lib.host_g1_madd.argtypes = [vp, vp, vp, i64]
     lib.host_mul_cc.argtypes = [i32, vp, vp, vp, i64]
     lib.host_fp_inv.argtypes = [i32, vp, vp, i64]
+    lib.host_blake2s_batch.argtypes = [vp, vp, i64, i32]
+    lib.host_sample_fr.argtypes = [vp, ctypes.c_uint32, vp]
+    lib.host_sample_fr.restype = ctypes.c_uint32
+    lib.host_round.argtypes = [i32, vp, vp, i64, i32, i32, i32]
+    lib.host_fs_sc1_emit.argtypes = [vp] * 8 + [i64, i32]
+    lib.host_fs_sc1_final.argtypes = [vp] * 7
+    lib.host_fs_sc2_emit.argtypes = [vp] * 5 + [i64]
     return lib
 
 
@@ -279,3 +340,110 @@ def test_fp_inv_kernel_source_matches_plain_chain(lib, version):
     lib.host_fp_inv(version == "warp", a.data_ptr(), out.data_ptr(), a.shape[1])
     assert torch.equal(out, tf.fermat_inv_plain(tf.FP, a))
     assert tf.decode_mont(tf.FP, out) == [pow(x, m - 2, m) for x in xs]
+
+
+def _ptr(t: torch.Tensor) -> int:
+    assert t.is_contiguous()
+    return t.data_ptr()
+
+
+@pytest.mark.parametrize("nwords", [0, 1, 8, 10, 16, 17, 32, 162])
+def test_blake2s_kernel_source_matches_hashlib(lib, nwords):
+    """blake2s.cuh on 3 messages of `nwords` words: the lengths around the
+    block edges, 32 words (round 4's two full blocks) and 162 (a sumcheck-1
+    round's message at 2^16)."""
+    rng = np.random.default_rng(nwords)
+    msgs = rng.integers(0, 1 << 32, size=(3, nwords), dtype=np.uint64).astype(np.uint32)
+    out = np.zeros((3, 8), dtype=np.uint32)
+    m = np.ascontiguousarray(msgs)
+    assert lib.host_blake2s_batch(m.ctypes.data, out.ctypes.data, 3, nwords) == 0
+    for i in range(3):
+        assert out[i].astype("<u4").tobytes() == hashlib.blake2s(m[i].astype("<u4").tobytes()).digest()
+
+
+def test_sampler_kernel_source_matches_host_stream(lib):
+    """blake2s.cuh's sample_fr on one running counter against the host
+    transcript's sample_fr, over enough samples to reject some."""
+    from spartan_tpu_torch.utils.transcript import Blake2sRng
+
+    host = Blake2sRng.setup()
+    host.feed(bytes(range(200)))
+    state = np.frombuffer(host.get_state(), dtype="<u4").copy()
+    want = host.sample_fr_vec(40)
+    out = np.zeros(8, dtype=np.uint32)
+    ctr, got = 0, []
+    for _ in range(40):
+        ctr = lib.host_sample_fr(state.ctypes.data, ctr, out.ctypes.data)
+        got.append(int.from_bytes(out.astype("<u4").tobytes(), "little"))
+    assert got == want
+    assert ctr > 40  # some draws were rejected
+
+
+def _fr_table(rng, n):
+    return tf.encode_mont(tf.FR, [rng.randrange(hf.R) for _ in range(n)])
+
+
+# (pairs, threads a block, blocks, fold): the grid loop, and partials over several blocks
+ROUND_SHAPES = [(4, 32, 1, 0), (64, 32, 3, 1), (64, 64, 2, 1)]
+
+
+@pytest.mark.parametrize("shape", ROUND_SHAPES, ids=lambda s: "p{}-t{}-b{}-f{}".format(*s))
+@pytest.mark.parametrize("kernel", ["sc1_round", "prod2_round"])
+def test_round_kernel_sources_match_plain(lib, kernel, shape):
+    """K6 and K7 (sumcheck.cuh): the folded tables and the partials' sum mod r
+    against the plain round (ops.sumcheck with PLAIN), at 4 and 64 pairs."""
+    from spartan_tpu_torch.ops import sumcheck as tsc
+
+    pairs, threads, blocks, fold = shape
+    rng = random.Random(pairs * 7 + fold)
+    width = (4 if fold else 2) * pairs
+    nt = 3 if kernel == "sc1_round" else 2
+    tabs = [_fr_table(rng, width) for _ in range(nt)]
+    s_tab = _fr_table(rng, pairs)
+    r = _fr_table(rng, 1)
+    outs = [torch.zeros((8, 2 * pairs), dtype=torch.int32) for _ in range(nt)]
+    partials = torch.zeros((3, blocks, 8), dtype=torch.int32)
+    ins = tabs + ([s_tab] if nt == 3 else []) + [r.t().contiguous()]
+    ptrs = (ctypes.c_void_p * (2 * nt + len(ins) - nt))(*[_ptr(t) for t in ins + outs])
+    assert lib.host_round(nt == 3, ptrs, _ptr(partials), pairs, fold, threads, blocks) == 0
+    if nt == 3:
+        q, *want = tsc.sc1_round(*tabs, s_tab, bool(fold), r, tsc.PLAIN)
+    else:
+        q, *want = tsc.prod2_round(*tabs, bool(fold), r, tsc.PLAIN)
+    assert torch.equal(tf.sum_mod(partials.permute(2, 0, 1))[..., 0], q)
+    if fold:
+        assert all(torch.equal(o, x) for o, x in zip(outs, want))
+
+
+@pytest.mark.parametrize("step", ["sc1_emit", "sc1_final", "sc2_emit"])
+def test_transcript_kernel_sources_match_plain(lib, step):
+    """K5 (fs.cuh) against protocol.fused's plain versions: every buffer it
+    writes (evaluations, challenge canonical and Montgomery, pre, the chain
+    state; round 4's va, vb, vc and r_a, r_b, r_c), from 5 partials."""
+    from spartan_tpu_torch.protocol import fused
+
+    rng = random.Random(len(step))
+    el = lambda: _fr_table(rng, 1).t().contiguous()  # noqa: E731
+    state = torch.from_numpy(np.frombuffer(bytes(rng.randrange(256) for _ in range(32)), dtype="<i4").copy())
+    partials = _fr_table(rng, 15).t().reshape(3, 5, 8).contiguous()
+    if step == "sc1_emit":
+        log_n = 5
+        consts = fused.emit_consts(log_n + 2, "cpu")
+        args = {"partials": partials, "tor_i": el().reshape(8), "consts": consts, "pre": el().reshape(8),
+                "state": state, "evals": torch.zeros((log_n + 3, 8), dtype=torch.int32),
+                "r_out": torch.zeros(8, dtype=torch.int32), "r_mont": torch.zeros(8, dtype=torch.int32)}
+        run = lambda a: lib.host_fs_sc1_emit(*[_ptr(t) for t in a.values()], 5, log_n + 3)  # noqa: E731
+    elif step == "sc1_final":
+        args = {"az": _fr_table(rng, 2), "bz": _fr_table(rng, 2), "cz": _fr_table(rng, 2),
+                "r_mont": el().reshape(8), "state": state, "vabc": torch.zeros((3, 8), dtype=torch.int32),
+                "rabc": torch.zeros((3, 8), dtype=torch.int32)}
+        run = lambda a: lib.host_fs_sc1_final(*[_ptr(t) for t in a.values()])  # noqa: E731
+    else:
+        args = {"partials": partials, "state": state, "evals": torch.zeros((3, 8), dtype=torch.int32),
+                "r_out": torch.zeros(8, dtype=torch.int32), "r_mont": torch.zeros(8, dtype=torch.int32)}
+        run = lambda a: lib.host_fs_sc2_emit(*[_ptr(t) for t in a.values()], 5)  # noqa: E731
+    kern = {k: v.clone() for k, v in args.items()}
+    assert run(kern) == 0
+    getattr(fused, step + "_plain")(*args.values())
+    for k in args:
+        assert torch.equal(kern[k], args[k]), k

@@ -10,6 +10,7 @@
 
 import ast
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -91,6 +92,22 @@ def test_kernel_table_names_sources():
     assert all(f"spk_{name}(" in sources for name in kernels.YARDSTICKS)
 
 
+def test_phase_kernel_table_names_sources():
+    """Every sumcheck-phase kernel names its source, which defines its entry
+    point with as many pointer and int parameters as the table says, and
+    the def line of the JAX function it replaces."""
+    for name, (src, rep, n_t, n_int) in kernels.PHASE_KERNELS.items():
+        text = (kernels.CSRC / src).read_text()
+        m = re.search(r"extern \"C\" int spk_" + name + r"\(([^)]*)\)", text)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert params[-1] == "cudaStream_t stream", name
+        assert sum("*" in p for p in params) == n_t and sum(p.startswith("int64_t") for p in params) == n_int
+        path, line = rep.split(":")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1].lstrip().startswith("def "), rep
+    assert not set(kernels.PHASE_KERNELS) & set(kernels.KERNELS)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -107,3 +124,21 @@ def test_kernels_match_plain_on_card():
         chip_smoke.TIMED_LANES, chip_smoke.G1_WIDTHS, chip_smoke.G2_WIDTHS = old
     assert {r["name"] for r in rows} == set(kernels.KERNELS)
     assert all(r["max_abs_err"] == 0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_phase_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on one: python -m pytest --noconftest tests/test_torch_imports.py -m gpu")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    old = chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED
+    chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = 8, 1 << 10
+    try:
+        rows = chip_smoke.phase_fs_kernels(torch.device("cuda", 0), chip_smoke.Card())
+    finally:
+        chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = old
+    assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH[:2]) + ["fs_sc1_emit", "fs_sc2_emit",
+                                                                          "fs_sc1_final"]
+    assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch"}

@@ -151,7 +151,7 @@ def graph_ms(name: str, out: torch.Tensor, *ins: torch.Tensor, args=(), launches
 class Card:
     """Rates of an H100 SXM for the bounds: 3.35 TB/s of device memory, and 32-bit products at 64 IMADs per SM per
     clock, two per 32x32->64 product, at the card's top SM clock; other 32-bit integer instructions (Blake2s's adds,
-    xors and rotates) at the issue limit, one warp instruction a scheduler a clock: 128 per SM per clock."""
+    xors and rotates) at the dispatch limit, one warp instruction a scheduler a clock: 128 per SM per clock."""
 
     MEM_BYTES_PER_S = 3.35e12
 

@@ -25,22 +25,29 @@ exits non-zero:
    launched shape, and fr_mul's at every width the prove launches it at
    beside its version before the carry flag; then the sumcheck-phase
    kernels: K5's Blake2s (the yardstick blake2s_batch) against hashlib,
-   the round kernels K6 and K7 at 2^16 pairs and at every width the 2^16
-   prove launches them at, and the transcript kernels K5 at the partial
-   counts the prove gives them, each bit-exact against its plain version
-   and timed by device time (CUDA graphs) beside its bound; nvidia-smi's
-   clocks.sm sampled;
+   the round kernels K6 and K7 with their transcript step (K5) at 2^16
+   pairs and at every width the 2^16 prove launches them at, and the
+   one-block tails at the prove's one shape, each bit-exact against its
+   plain version (every output: tables, evaluations, challenges, pre, the
+   coefficients, the chain state) and timed by device time (CUDA graphs)
+   beside its bound and PR 6's time for the same rounds; K6's stage split
+   in cycles (sc1_round_stamped) at one pair and at 2^15 pairs;
+   nvidia-smi's clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
-   ``tests/fixtures/proof_2e5_seed3.bin``;
+   ``tests/fixtures/proof_2e5_seed3.bin``; then both sumcheck phases on the
+   card must equal the JAX package's fused phases at log_n = 3..10
+   (``tests/fixtures/sumcheck_phases_jax.json``; from log_n = 9 their first
+   rounds are round launches of 8 and 16 blocks);
 4. the full-size run: log_n = 16, density 0, 4 public inputs, circuit seed
    0; setup -> index -> prove -> verify, each timed; verify must accept,
    and reject a proof with one opening byte changed and a wrong public
    input; every kernel entry point of the path must have launched during
-   the run (K6 and K7 once a round); fr_mul's device time summed over the
-   prove's shapes, from phase 2; then the same prove through the host loop
-   (SPARTAN_DEVICE_FS=0) on the same keys must give the same bytes, with
-   both routes' spans and launches printed;
+   the run (K6 and K7 once a round up to the tail, each tail once, at
+   most 20 launches in the two phases, printed by entry point); fr_mul's
+   device time summed over the prove's shapes, from phase 2; then the same
+   prove through the host loop (SPARTAN_DEVICE_FS=0) on the same keys must
+   give the same bytes, with both routes' spans and launches printed;
 5. for each route, warm proves, then one under torch.profiler (device time
    by kernel, the card's busy and idle share, the copies from the device
    to the host in the prove and inside each sumcheck span); each of the
@@ -67,6 +74,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "proof_2e5_seed3.bin")
+# spartan_tpu's fused sumcheck phases at log_n = 3..10 (scripts/make_sumcheck_fixture.py)
+PHASES_FIXTURE = os.path.join(REPO, "tests", "fixtures", "sumcheck_phases_jax.json")
 TIMED_LANES = 1 << 16  # the width of the 2^16 tables; see PERF.md
 
 
@@ -584,7 +593,7 @@ def _fp_inv_row(card: Card, rng, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 FS_LOG_N = 16  # the full run's log_n: the rounds' widths and a round's evaluations
-PHASE_PATH = ("sc1_round", "prod2_round", "fs_sc1_emit", "fs_sc1_final", "fs_sc2_emit")
+PHASE_PATH = ("sc1_round", "prod2_round", "sc1_tail", "sc2_tail")
 FR_PRODUCT = 128  # 32x32->64 products of an Fr product
 # 32-bit instructions a Blake2s compression needs at least: 10 rounds x 8 G x 12 (two three-input adds,
 # two adds, four xors, four rotates), and 8 three-input xors to finish
@@ -592,6 +601,30 @@ B2S_OPS = 968
 B2S_WORDS = (0, 1, 10, 16, 17, 32, 162)  # block edges, round 4's 32 words, a 2^16 sumcheck-1 round's 162
 B2S_COUNT = 4096  # messages a width in the check against hashlib
 B2S_TIMED = 1 << 16  # messages of 162 words in the timed launch
+# PR 6's device ms (CUDA graph) of a round at the 2^16 prove's widths: its round kernel by pairs and its
+# transcript kernel by partials (PERF.md, PR 6: chip_smoke.py at 6f01809 on an NVIDIA H100 80GB HBM3, 700 W)
+PR6_ROUND_MS = {
+    "sc1_round": {1 << 16: 0.03458, 1 << 15: 0.01214, 1 << 14: 0.01563, 1 << 13: 0.01500, 1 << 12: 0.01486, 1 << 11: 0.01436,
+                  1 << 10: 0.01438, 512: 0.01435, 256: 0.01435, 128: 0.01366, 64: 0.01291, 32: 0.01286,
+                  16: 0.01256, 8: 0.01238, 4: 0.01223, 2: 0.01234, 1: 0.01237},
+    "prod2_round": {1 << 16: 0.02125, 1 << 15: 0.00915, 1 << 14: 0.01085, 1 << 13: 0.01047, 1 << 12: 0.01034, 1 << 11: 0.00985,
+                    1 << 10: 0.00976, 512: 0.00990, 256: 0.00982, 128: 0.00921, 64: 0.00891, 32: 0.00886,
+                    16: 0.00871, 8: 0.00868, 4: 0.00867, 2: 0.00865, 1: 0.00863},
+}
+PR6_EMIT_MS = {
+    "sc1_round": {256: 0.02130, 128: 0.02035, 64: 0.01987, 32: 0.01955, 16: 0.01956, 8: 0.01956, 4: 0.01949,
+                  2: 0.01951, 1: 0.01954},
+    "prod2_round": {256: 0.00883, 128: 0.00791, 64: 0.00738, 32: 0.00710, 16: 0.00708, 8: 0.00688, 4: 0.00693,
+                    2: 0.00685, 1: 0.00705},
+}
+PR6_FINAL_MS = 0.00981  # its round-4 kernel (fs_sc1_final)
+
+
+def _pr6_ms(name: str, pairs: int) -> float:
+    """PR 6's device ms of a round of `pairs` pairs: its round kernel and its
+    transcript kernel on that round's partials (128 pairs a block, at most
+    256 blocks)."""
+    return PR6_ROUND_MS[name][pairs] + PR6_EMIT_MS[name][max(1, min(256, -(-pairs // 128)))]
 
 
 def _phase_call(name: str, tensors, ints):
@@ -647,160 +680,233 @@ def _blake2s_yardstick(card: Card, rng, dev) -> None:
           f"{B2S_TIMED} messages of {nwords} words: device {ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
 
 
-def _round_inputs(name: str, pairs: int, fold: bool, rng, dev):
-    """Seeded tables entering a round of `pairs` pairs, the weight table
-    (K6), a Montgomery challenge: the wrapper's arguments."""
+def _fr_rows(n: int, rng, dev) -> torch.Tensor:
+    """n seeded Montgomery elements, (8, n)."""
     from spartan_tpu_torch.ops.field import FR
 
+    return _random_field(FR, n + 3, rng, dev)[:, 3:].contiguous()
+
+
+def _phase_args(name: str, pairs: int, fold: bool, rng, dev) -> dict:
+    """Seeded arguments of a round launch (sc1_round, prod2_round: `pairs`
+    pairs) or a tail (sc1_tail, sc2_tail: from `pairs` pairs down), as the
+    wrappers in protocol.fused take them, the outputs zeroed."""
+    from spartan_tpu_torch.protocol import fused
+
+    sc1 = name.startswith("sc1")
+    rounds = pairs.bit_length()
+    words = lambda n: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    el = lambda: _fr_rows(1, rng, dev).reshape(8)  # noqa: E731
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
     width = (4 if fold else 2) * pairs
-    fr = lambda n: _random_field(FR, max(n, 3), rng, dev)[:, :n].contiguous()  # noqa: E731
-    tabs = [fr(width) for _ in range(3 if name == "sc1_round" else 2)]
-    extra = [fr(pairs)] if name == "sc1_round" else []
-    r_mont = _random_field(FR, 4, rng, dev)[:, 3].contiguous()
-    return tabs, extra, r_mont
+    a = {f"t{k}": _fr_rows(width, rng, dev) for k in range(3 if sc1 else 2)}
+    d = FS_LOG_N + 3 if sc1 else 3
+    coef = lambda: torch.from_numpy(fused._words(  # noqa: E731
+        fused.first_coef(int(rng.integers(1 << 62)), d - 1))).reshape(6, d, 8).to(dev)
+    if name == "sc1_round":
+        a |= {"s": _fr_rows(pairs, rng, dev), "fold": fold, "consts": fused.emit_consts(FS_LOG_N + 2, dev),
+              "tor_i": el(), "tor_next": el(), "pre": el(), "coef": coef()}
+    elif name == "sc1_tail":
+        a |= {"s_cat": torch.cat([_fr_rows(pairs >> k, rng, dev).reshape(-1) for k in range(rounds)]),
+              "fold": fold, "consts": fused.emit_consts(FS_LOG_N + 2, dev),
+              "tor": _fr_rows(rounds, rng, dev).t().contiguous(), "pre": el(), "coef": coef()}
+    else:
+        a["fold"] = fold
+    a["state"] = words(8)
+    if name.endswith("round"):
+        a |= {"evals": z(d, 8), "r_out": z(8), "r_mont": el()}
+    else:
+        a |= {"evals": z(rounds, d, 8), "rs": z(rounds, 8), "r_mont": el()}
+    if name == "sc1_tail":
+        a |= {"vabc": z(3, 8), "rabc": z(3, 8)}
+    return a
 
 
-def _round_cost(name: str, pairs: int, fold: bool, blocks: int):
-    """(Fr products, bytes) of a round: each table read once, the folded
-    tables and the partials written once."""
-    nt = 3 if name == "sc1_round" else 2
-    products = pairs * ((2 * nt if fold else 0) + (6 if name == "sc1_round" else 3))
-    nbytes = 32 * (nt * (4 if fold else 2) * pairs + (pairs if name == "sc1_round" else 0)
-                   + (nt * 2 * pairs if fold else 0) + 3 * blocks)
-    return products, nbytes
+def _run(name: str, a: dict, plain: bool):
+    """The wrapper (a launch, counted) or its plain version on `a`, in place;
+    returns the tables a round hands on."""
+    from spartan_tpu_torch.protocol import fused
+
+    args = list(a.values())
+    if name.endswith("round") and not plain:
+        ctr = torch.zeros(8, dtype=torch.int32, device=args[0].device)
+        sums = torch.zeros((fused.SUMS_ROWS, 8), dtype=torch.int32, device=args[0].device)
+        return getattr(fused, name)(*args, ctr, sums)
+    return getattr(fused, name + ("_plain" if plain else ""))(*args)
 
 
-def _round_row(name: str, card: Card, rng, dev) -> dict:
-    """K6 or K7 at 2^16 pairs (folding) and at every width the 2^16 prove
-    launches it at (2^15 pairs without the fold, then 2^14 to 1 folding):
-    the folded tables and the partials' sum bit-exact against the plain
-    round on the same inputs, and the device time (CUDA graph) beside the
-    bound; the row's times are those at 2^16 pairs."""
+def _direct_args(name: str, a: dict):
+    """The entry point's tensors and ints for a direct call on `a`."""
+    from spartan_tpu_torch.protocol import fused
+
+    v = {k: x for k, x in a.items() if k != "fold"}
+    fold = a["fold"]
+    tabs = [v.pop(f"t{k}") for k in range(3 if name.startswith("sc1") else 2)]
+    dev = tabs[0].device
+    if name.endswith("tail"):
+        pairs = tabs[0].shape[-1] // (4 if fold else 2)
+        d = [v["consts"].shape[1]] if name == "sc1_tail" else []
+        head = [*tabs, v.pop("s_cat"), v.pop("consts"), v.pop("tor")] if name == "sc1_tail" else tabs
+        return [*head, *v.values()], [pairs, int(fold), pairs.bit_length(), *d]
+    pairs = tabs[0].shape[-1] // (4 if fold else 2)
+    outs = [torch.empty((8, 2 * pairs), dtype=torch.int32, device=dev) for _ in tabs] if fold else tabs
+    ctr = torch.zeros(8, dtype=torch.int32, device=dev)
+    sums = torch.zeros((fused.SUMS_ROWS, 8), dtype=torch.int32, device=dev)
+    head = ([*tabs, v.pop("s"), v.pop("consts"), v.pop("tor_i"), v.pop("tor_next")] if name == "sc1_round"
+            else tabs)
+    d = [FS_LOG_N + 3] if name == "sc1_round" else []
+    return [*head, *v.values(), ctr, *outs, sums], [pairs, int(fold), fused.round_blocks(pairs), *d]
+
+
+def _phase_cost(name: str, pairs: int, fold: bool, compressions: int):
+    """(Fr products, other 32-bit instructions, bytes) of a launch of these
+    arguments: each table read once, the folded tables and the transcript
+    step's outputs written once; the Blake2s compressions it ran
+    (its samples' rejected draws counted). A tail is its rounds' sum."""
+    from spartan_tpu_torch.protocol import fused
+
+    sc1 = name.startswith("sc1")
+    nt, d = (3, FS_LOG_N + 3) if sc1 else (2, 3)
+    products = nbytes = 0
+    rounds = [(pairs, fold)] if name.endswith("round") else [(pairs >> k, fold or k > 0)
+                                                              for k in range(pairs.bit_length())]
+    for p, f in rounds:
+        # the pairs' folds and terms; the step's: sumcheck 1 six an evaluation, the next round's sixteen
+        # (brackets and K), and five more; sumcheck 2 six and one
+        products += p * ((2 * nt if f else 0) + (6 if sc1 else 3)) + (22 * d + 5 if sc1 else 7)
+        nbytes += 32 * (nt * (4 if f else 2) * p + (p if sc1 else 0) + (5 * d if sc1 else 0) + d + 3)
+        if name.endswith("round"):
+            nbytes += 32 * nt * 2 * p * f
+    return products, compressions * B2S_OPS, nbytes
+
+
+def _draws(state: torch.Tensor, n: int = 1) -> int:
+    """Blocks of the output stream that n samples from the chain state
+    `state` took, rejected ones included."""
+    from spartan_tpu_torch.ops import fs_device as fsd
+
+    st, draws = fsd.as_words(state.cpu().reshape(-1)), 0
+    for _ in range(n):
+        _r, draws = fsd.fs_sample_fr(st, draws)
+    return draws
+
+
+def _phase_widths(name: str):
+    """(pairs, fold) of every launch of `name` in the 2^16 prove (from
+    protocol.fused's schedule), the round kernels also at 2^16 pairs."""
+    from spartan_tpu_torch.protocol import fused
+
+    i0 = fused.tail_start(FS_LOG_N)
+    if name.endswith("tail"):
+        return [(1 << (FS_LOG_N - 1 - i0), i0 > 0)]
+    return [(1 << 16, True)] + [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(i0)]
+
+
+def _phase_row(name: str, card: Card, rng, dev) -> dict:
+    """A round kernel (with its transcript step) or a tail against its plain
+    version at every width the 2^16 prove launches it at, every output
+    bit-exact, and its device time (CUDA graph) beside the bound and PR 6's
+    time for the same rounds; the row's times are those at the first width."""
     from spartan_tpu_torch import kernels
-    from spartan_tpu_torch.ops import field as fo
-    from spartan_tpu_torch.ops import sumcheck as sck
 
-    dev_fn = sck.sc1_round_dev if name == "sc1_round" else sck.prod2_round_dev
-    plain_fn = sck.sc1_round if name == "sc1_round" else sck.prod2_round
-    shapes = [(1 << 16, True)] + [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(FS_LOG_N)]
     row, widths = None, []
-    for pairs, fold in shapes:
-        tabs, extra, r_mont = _round_inputs(name, pairs, fold, rng, dev)
-        partials, *outs = dev_fn(*tabs, *extra, fold, r_mont)
-        q, *want = plain_fn(*tabs, *extra, fold, r_mont, sck.PLAIN)
-        got_q = fo.sum_mod(partials.permute(2, 0, 1))[..., 0]
-        check(torch.equal(got_q, q) and all(torch.equal(o, x) for o, x in zip(outs, want)),
-              f"{name} pairs={pairs} fold={fold}: kernel disagrees with its plain version")
-        blocks = partials.shape[1]
-        args = [*tabs, *extra, r_mont, *(outs if fold else tabs), partials]
-        call = _phase_call(name, args, [pairs, int(fold), blocks])
-        w = {"pairs": pairs, "fold": fold, "blocks": blocks, "device_ms": _graph_ms_of(call)}
-        products, nbytes = _round_cost(name, pairs, fold, blocks)
-        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes)
-        print(f"{name} pairs={pairs} fold={int(fold)} blocks={blocks} bit-exact: device {w['device_ms']:.5f} ms  "
-              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
+    for pairs, fold in _phase_widths(name):
+        a = _phase_args(name, pairs, fold, rng, dev)
+        mine, ref = ({k: (v.clone() if torch.is_tensor(v) else v) for k, v in a.items()} for _ in range(2))
+        got, want = _run(name, mine, False), _run(name, ref, True)
+        same = all(torch.equal(mine[k], ref[k]) for k in a if torch.is_tensor(a[k]))
+        if name.endswith("round") and fold:
+            same = same and all(torch.equal(x, y) for x, y in zip(got, want))
+        check(same, f"{name} pairs={pairs} fold={fold}: kernel disagrees with its plain version")
+        sc1 = name.startswith("sc1")
+        n_rounds = 1 if name.endswith("round") else pairs.bit_length()
+        msg_words = 10 + 8 * ((FS_LOG_N + 3) if sc1 else 3)
+        # the absorbs' compressions and the samples' draws (a tail's rounds counted at one draw each)
+        compressions = n_rounds * _compressions(msg_words)
+        if name.endswith("round"):
+            compressions += _draws(ref["state"])
+        else:
+            compressions += n_rounds + (_compressions(32) + _draws(ref["state"], 3) if sc1 else 0)
+        tensors, ints = _direct_args(name, a)
+        call = _phase_call(name, tensors, ints)
+        w = {"pairs": pairs, "fold": fold, "device_ms": _graph_ms_of(call)}
+        products, int_ops, nbytes = _phase_cost(name, pairs, fold, compressions)
+        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes, int_ops)
+        if name.endswith("round"):
+            w["pr6_ms"] = _pr6_ms(name, pairs) if pairs in PR6_ROUND_MS[name] else None
+        else:
+            w["pr6_ms"] = sum(_pr6_ms(name.replace("_tail", "_round").replace("sc2", "prod2"), pairs >> k)
+                              for k in range(n_rounds)) + (PR6_FINAL_MS if sc1 else 0.0)
+        pr6 = f"{w['pr6_ms']:.5f}" if w["pr6_ms"] is not None else "-"
+        print(f"{name} pairs={pairs} fold={int(fold)} bit-exact: device {w['device_ms']:.5f} ms  "
+              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})  PR 6 {pr6} ms", flush=True)
         widths.append(w)
         if row is None:
             src, rep, _nt, _ni = kernels.PHASE_KERNELS[name]
+            plain_ms = cuda_ms(lambda: _run(name, {k: (v.clone() if torch.is_tensor(v) else v)
+                                                   for k, v in a.items()}, True), 2)
             row = {"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
-                   "max_abs_err": 0, "ms": cuda_ms(call, 20),
-                   "plain_ms": cuda_ms(lambda: plain_fn(*tabs, *extra, fold, r_mont, sck.PLAIN), 2),
-                   "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": None,
-                   "device_ms": w["device_ms"]}
+                   "max_abs_err": 0, "ms": cuda_ms(call, 20), "plain_ms": plain_ms, "bound_ms": w["bound_ms"],
+                   "bound_by": w["bound_by"], "library_ms": None, "device_ms": w["device_ms"]}
     row["widths"] = widths
-    prove = widths[1:]
-    print(f"{name} over the 2^16 prove's {len(prove)} rounds by device time: "
-          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms",
-          flush=True)
+    prove = widths[1:] if name.endswith("round") else widths
+    pr6 = sum(x["pr6_ms"] for x in prove)
+    print(f"{name} over the 2^16 prove's {len(prove)} launches by device time: "
+          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms, "
+          f"PR 6 for the same rounds {pr6:.4f} ms", flush=True)
     return row
 
 
-def _emit_case(step: str, nblocks: int, rng, dev):
-    """Seeded arguments of a K5 entry point, as its wrapper takes them."""
-    from spartan_tpu_torch.ops.field import FR
-    from spartan_tpu_torch.protocol import fused
-
-    el = lambda: _random_field(FR, 4, rng, dev)[:, 3].contiguous()  # noqa: E731
-    words = lambda n: torch.from_numpy(  # noqa: E731
-        rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
-    partials = _random_field(FR, 3 * nblocks + 3, rng, dev)[:, 3:].t().reshape(3, nblocks, 8).contiguous()
-    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
-    d = FS_LOG_N + 3
-    if step == "fs_sc1_emit":
-        return [partials, el(), fused.emit_consts(FS_LOG_N + 2, dev), el(), words(8), z(d, 8), z(8), z(8)]
-    if step == "fs_sc2_emit":
-        return [partials, words(8), z(3, 8), z(8), z(8)]
-    tabs = [_random_field(FR, 5, rng, dev)[:, 3:].contiguous() for _ in range(3)]
-    return [*tabs, el(), words(8), z(3, 8), z(3, 8)]
+STAGES = {0: "loads", 1: "fold", 2: "evaluation products", 3: "warp sums", 4: "block sum",
+          5: "partial sums and ticket", 6: "the last block's sums", 7: "evaluations", 48: "sampler", 49: "pre"}
 
 
-def _emit_cost(step: str, args, nblocks: int):
-    """(Fr products, Blake2s compressions, bytes) of a K5 launch on these
-    arguments (after it ran: the draws its samples took are counted from the
-    chain state it wrote)."""
-    from spartan_tpu_torch.ops import fs_device as fsd
-
-    d = FS_LOG_N + 3
-    st = fsd.as_words(args[4 if step != "fs_sc2_emit" else 1].cpu().reshape(-1))
-    draws = 0  # blocks the samples drew, rejected ones included
-    for _ in range(3 if step == "fs_sc1_final" else 1):
-        _r, draws = fsd.fs_sample_fr(st, draws)
-    if step == "fs_sc1_emit":
-        return 7 * d + 3, _compressions(10 + 8 * d) + draws, 32 * (3 * nblocks + 5 * d + 3 + d + 4)
-    if step == "fs_sc2_emit":
-        return 4, _compressions(10 + 24) + draws, 32 * (3 * nblocks + 1 + 3 + 3)
-    return 6, _compressions(32) + draws, 32 * (6 + 1 + 1 + 3 + 3 + 1)
-
-
-def _emit_row(step: str, card: Card, rng, dev) -> dict:
-    """A K5 entry point against its plain version, every buffer it writes
-    bit-exact, at the partial counts the 2^16 prove gives it (fs_sc1_final at
-    its one shape), and its device time (CUDA graph) beside the bound; the
-    row's times are those of the prove's first round (256 partials)."""
+def _stamp_split(card: Card, rng, dev) -> None:
+    """K6 and its transcript step by stage (sc1_round_stamped: clock64() at
+    the stage boundaries of thread 0 of each block) at one pair (folding)
+    and at 2^15 pairs (the prove's first round): the cycles of block 0's
+    round stages and of the last block's transcript step, one compression
+    at a time, with microseconds at clocks.max.sm."""
     from spartan_tpu_torch import kernels
-    from spartan_tpu_torch.ops import sumcheck as sck
-    from spartan_tpu_torch.protocol import fused
 
-    wrap, plain = {"fs_sc1_emit": (fused.sc1_emit, fused.sc1_emit_plain),
-                   "fs_sc2_emit": (fused.sc2_emit, fused.sc2_emit_plain),
-                   "fs_sc1_final": (fused.sc1_final, fused.sc1_final_plain)}[step]
-    counts = [1] if step == "fs_sc1_final" else sorted(
-        {sck.round_blocks(1 << (FS_LOG_N - 1 - i)) for i in range(FS_LOG_N)}, reverse=True)
-    row, widths = None, []
-    for nblocks in counts:
-        args = _emit_case(step, nblocks, rng, dev)
-        mine, ref = [a.clone() for a in args], [a.clone() for a in args]
-        wrap(*mine)
-        plain(*ref)
-        check(all(torch.equal(a, b) for a, b in zip(mine, ref)),
-              f"{step} nblocks={nblocks}: kernel disagrees with its plain version")
-        products, compressions, nbytes = _emit_cost(step, ref, nblocks)
-        ints = {"fs_sc1_emit": [nblocks, FS_LOG_N + 3], "fs_sc2_emit": [nblocks], "fs_sc1_final": []}[step]
-        call = _phase_call(step, args, ints)
-        w = {"partials": nblocks, "device_ms": _graph_ms_of(call), "compressions": compressions}
-        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes, compressions * B2S_OPS)
-        print(f"{step} partials={nblocks} bit-exact: device {w['device_ms']:.5f} ms  "
-              f"bound {w['bound_ms']:.2e} ms ({w['bound_by']}; {compressions} compressions)", flush=True)
-        widths.append(w)
-        if row is None:
-            src, rep, _nt, _ni = kernels.PHASE_KERNELS[step]
-            row = {"name": step, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
-                   "max_abs_err": 0, "ms": cuda_ms(call, 20),
-                   "plain_ms": cuda_ms(lambda: plain(*[a.clone() for a in args]), 2),
-                   "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": None,
-                   "device_ms": w["device_ms"]}
-    row["widths"] = widths
-    return row
+    for pairs, fold in ((1, True), (1 << 15, False)):
+        a = _phase_args("sc1_round", pairs, fold, rng, dev)
+        tensors, ints = _direct_args("sc1_round", a)
+        blocks = ints[2]
+        stamps = torch.zeros((blocks, 64), dtype=torch.int64, device=dev)
+        fn = getattr(kernels.load(), "spk_sc1_round_stamped")
+        runs = []
+        for _ in range(4):
+            stamps.zero_()
+            rc = fn(*[t.data_ptr() for t in tensors], stamps.data_ptr(), *ints,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"sc1_round_stamped: cudaGetLastError() = {rc}")
+            torch.cuda.synchronize()
+            runs.append(stamps.cpu().numpy())
+        st = runs[-1]
+        last = int(np.argmax(st[:, 7]))  # the block that ran the transcript step
+        comp = [int(c) for c in st[last, 8:48] if c > 0]
+        us = lambda c: c / card.max_sm_mhz  # noqa: E731
+        head = ", ".join(f"{STAGES[k]} {int(st[0, k])}" for k in range(5))
+        tail = ", ".join(f"{STAGES[k]} {int(st[last, k])}" for k in (5, 6, 7))
+        print(f"stamps sc1_round pairs={pairs} fold={int(fold)} blocks={blocks}: cycles (block 0) {head}; "
+              f"(block {last}, the transcript step) {tail}, compressions {comp}, sampler {int(st[last, 48])}, "
+              f"pre {int(st[last, 49])}; block 0 round total {int(st[0, :5].sum())} = {us(st[0, :5].sum()):.2f} us, "
+              f"the step {int(st[last, 5:50].sum())} = {us(st[last, 5:50].sum()):.2f} us; a compression "
+              f"{np.mean(comp[1:] or comp):.0f} cycles = {us(np.mean(comp[1:] or comp)):.3f} us", flush=True)
 
 
 def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
     """The sumcheck-phase kernels: K5's Blake2s against hashlib
-    (blake2s_batch), K6 and K7 at 2^16 pairs and the prove's widths, and the
-    K5 entry points, each bit-exact against its plain version on the card."""
+    (blake2s_batch), K6 and K7 with their transcript step at 2^16 pairs and
+    the prove's widths, the tails at the prove's one shape, each bit-exact
+    against its plain version on the card, and K6's stage stamps."""
     rng = np.random.default_rng(seed)
     _blake2s_yardstick(card, rng, dev)
-    return ([_round_row(name, card, rng, dev) for name in ("sc1_round", "prod2_round")]
-            + [_emit_row(step, card, rng, dev) for step in ("fs_sc1_emit", "fs_sc2_emit", "fs_sc1_final")])
+    rows = [_phase_row(name, card, rng, dev) for name in PHASE_PATH]
+    _stamp_split(card, rng, dev)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -853,6 +959,55 @@ def phase_golden(dev) -> None:
           flush=True)
 
 
+def _phase_inputs(log_n: int):
+    """Tables Az, Bz, Cz, W, Z, tor and a chain state, drawn as
+    scripts/make_sumcheck_fixture.py draws them for PHASES_FIXTURE."""
+    from spartan_tpu_torch.host import field as hf
+
+    rng = random.Random(1000 + log_n)
+    n = 1 << log_n
+    tabs = [[rng.randrange(hf.R) for _ in range(n)] for _ in range(5)]
+    tor = [rng.randrange(hf.R) for _ in range(log_n)]
+    state = bytes(rng.randrange(256) for _ in range(32))
+    return tabs, tor, state
+
+
+def phase_jax_phases(dev) -> None:
+    """Both sumcheck phases on the card (round launches and tails) against
+    the JAX package's fused phases on the same inputs, at every log_n of
+    PHASES_FIXTURE (3..10): every message, challenge, round 4's values and
+    the chain states. From log_n = 9 the first rounds are round launches of
+    several blocks (16 at log_n = 10), so the ticket and the last block's
+    transcript step are held against spartan_tpu's bytes."""
+    from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops import mle
+    from spartan_tpu_torch.ops.field import FR
+    from spartan_tpu_torch.protocol import fused
+
+    with open(PHASES_FIXTURE) as fh:
+        fixture = json.load(fh)
+    ints = lambda xs: [int(x, 16) for x in xs]  # noqa: E731
+    before = {k: dict(kernels.LANES[k]) for k in PHASE_PATH}
+    for key, want in fixture.items():
+        log_n = int(key)
+        tabs, tor, state = _phase_inputs(log_n)
+        mont = [fo.encode_mont(FR, t, dev) for t in tabs]
+        r1 = fused.sc1_phase(*mont[:3], mle.eq_suffix_tables(tor, dev), tor, state)
+        r2 = fused.sc2_phase(mont[3], mont[4], state)
+        check(r1.evals == [ints(e) for e in want["sc1"]["evals"]] and r1.rs == ints(want["sc1"]["rs"])
+              and r1.vabc == ints(want["sc1"]["vabc"]) and r1.rabc == ints(want["sc1"]["rabc"])
+              and r1.state.hex() == want["sc1"]["state"], f"sumcheck 1 at log_n={log_n} differs from spartan_tpu's")
+        check(r2.evals == [ints(e) for e in want["sc2"]["evals"]] and r2.rs == ints(want["sc2"]["rs"])
+              and r2.state.hex() == want["sc2"]["state"], f"sumcheck 2 at log_n={log_n} differs from spartan_tpu's")
+    launched = {k: sorted((list(key), m - before[k].get(key, 0)) for key, m in kernels.LANES[k].items()
+                          if m > before[k].get(key, 0)) for k in PHASE_PATH}
+    blocks = sorted({fused.round_blocks(p) for p, _f in (key for key, _m in launched["sc1_round"])})
+    print(f"jax phases: both sumcheck phases on the card equal spartan_tpu's at log_n = {', '.join(fixture)} "
+          f"({os.path.basename(PHASES_FIXTURE)}); launches [[pairs, fold], n] {json.dumps(launched)}; "
+          f"round launches of {blocks} blocks", flush=True)
+
+
 def _rejects(fn) -> str:
     """Run a verification expected to fail; return how it failed."""
     from spartan_tpu_torch.utils.errors import SpartanError
@@ -867,6 +1022,7 @@ def _rejects(fn) -> str:
 
 def phase_full(dev, card: Card, log_n: int = 16):
     from spartan_tpu_torch import kernels, timers
+    from spartan_tpu_torch.protocol import fused
     from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
     from spartan_tpu_torch.protocol.proof import Proof
 
@@ -926,8 +1082,14 @@ def phase_full(dev, card: Card, log_n: int = 16):
           flush=True)
     for k in prove_counts:
         check(prove_counts[k] > 0, f"kernel {k} never launched during prove")
-    for k in PHASE_PATH[:2]:
-        check(prove_counts[k] == log_n, f"{k}: {prove_counts[k]} launches, not one a round")
+    i0 = fused.tail_start(log_n)
+    for k in PHASE_PATH:
+        want = 1 if k.endswith("tail") else i0
+        check(prove_counts[k] == want, f"{k}: {prove_counts[k]} launches, not {want}")
+    phase_launches = sum(prove_counts[k] for k in PHASE_PATH)
+    check(phase_launches <= 20, f"the sumcheck phases launched {phase_launches} kernels, more than 20")
+    print(f"full: the sumcheck phases' launches a prove: {phase_launches} "
+          + json.dumps({k: prove_counts[k] for k in PHASE_PATH}), flush=True)
     check(any("(fused)" in k for k in device_spans), "the prove did not take the device-resident transcript")
 
     # the host loop on the same pk and pp: the same bytes
@@ -1045,7 +1207,7 @@ def _entry_point(kernel: str):
     m = re.search(r"pt_kernel<(Fe<FpParams>|FpC|Fp2), (\d)", kernel)
     if m:
         return ("g2_" if m.group(1) == "Fp2" else "g1_") + ("madd", "add", "double")[int(m.group(2))]
-    m = re.search(r"\b(sc1_round|prod2_round|fs_sc1_emit|fs_sc1_final|fs_sc2_emit|blake2s_batch)_kernel", kernel)
+    m = re.search(r"\b(sc1_round|prod2_round|sc1_tail|sc2_tail|blake2s_batch)_kernel", kernel)
     if m:
         return m.group(1)
     if "fe_mul_cc_kernel<FrParams>" in kernel:
@@ -1097,6 +1259,7 @@ def main() -> int:
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
+    phase_jax_phases(dev)
     launches, shapes, prove = phase_full(dev, card)
     _fr_mul_in_prove(rows, shapes["fr_mul"])
     inside = phase_profile(prove, "device route")

@@ -1,25 +1,32 @@
 // Blake2s-256 (digest 32 bytes, no key) of word-aligned messages, and the
 // Fiat-Shamir stream's Fr sampler, for one thread: the Blake2s of the
-// transcript kernels (fs_ops.cu) and of the yardstick blake2s_batch.
+// transcript step (fs.cuh) and of the yardstick blake2s_batch.
 //
 // Replaces spartan_tpu/ops/blake2s.py: blake2s_words (:120), which the JAX
 // package runs as vectorised uint32 ops inside its fused sumcheck programs,
 // and the sampler of spartan_tpu/ops/fs_device.py (fs_sample_fr :108).
 // Words are little-endian within a word, as the transcript serializes.
 //
-// What bounds it: a chain of about 1,150 dependent 32-bit adds, xors and
-// rotates a 64-byte block, on one thread. The rounds are written out with
-// the message schedule as literal indices, so the 16 message words stay in
-// registers (a table of the schedule would index them at run time, through
-// local memory), and the four G mixes of a column or diagonal step are
-// independent instructions that the compiler interleaves.
+// What bounds it: one compression is a chain of 240 dependent 32-bit
+// instructions (10 rounds, a column and a diagonal step each, 12 a G mix:
+// two three-input adds, two adds, four xors, four rotates) and about 1,000
+// instructions in all, which one thread issues; on the H100 a compression
+// takes about 1,660 cycles, 0.84 us (PERF.md, PR 7). The rounds are written
+// out with the message schedule as literal indices, so the 16 message words
+// stay in registers (a table of the schedule would index them at run time,
+// through local memory); the four G mixes of a column or diagonal step are
+// independent instructions that the compiler interleaves; a rotate is one
+// instruction (PRMT for 16 and 8, SHF.R.W for 12 and 7) and a + b + m one
+// IADD3.
 #pragma once
 
 #include <cstdint>
 
 namespace b2s {
 
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return (x >> n) | (x << (32 - n)); }
+__device__ __forceinline__ uint32_t rot16(uint32_t x) { return __byte_perm(x, x, 0x1032); }
+__device__ __forceinline__ uint32_t rot8(uint32_t x) { return __byte_perm(x, x, 0x0321); }
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
 
 __device__ __forceinline__ uint32_t iv(int i) {
   switch (i) {
@@ -31,19 +38,29 @@ __device__ __forceinline__ uint32_t iv(int i) {
 }
 
 #define SPK_B2S_G(a, b, c, d, x, y) \
-  a = a + b + (x); d = rotr(d ^ a, 16); c = c + d; b = rotr(b ^ c, 12); \
-  a = a + b + (y); d = rotr(d ^ a, 8);  c = c + d; b = rotr(b ^ c, 7);
+  a = a + b + (x); d = rot16(d ^ a); c = c + d; b = rotr(b ^ c, 12); \
+  a = a + b + (y); d = rot8(d ^ a);  c = c + d; b = rotr(b ^ c, 7);
 #define SPK_B2S_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
   SPK_B2S_G(v0, v4, v8, v12, m[s0], m[s1]) SPK_B2S_G(v1, v5, v9, v13, m[s2], m[s3])           \
   SPK_B2S_G(v2, v6, v10, v14, m[s4], m[s5]) SPK_B2S_G(v3, v7, v11, v15, m[s6], m[s7])         \
   SPK_B2S_G(v0, v5, v10, v15, m[s8], m[s9]) SPK_B2S_G(v1, v6, v11, v12, m[s10], m[s11])       \
   SPK_B2S_G(v2, v7, v8, v13, m[s12], m[s13]) SPK_B2S_G(v3, v4, v9, v14, m[s14], m[s15])
 
+struct Words8 {
+  uint32_t v[8];
+};
+struct Words16 {
+  uint32_t v[16];
+};
+
 // One compression of the message block m into h: t is the byte count so far
-// (messages below 4 GiB), last the final-block flag.
-__device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], uint32_t t, bool last) {
-  uint32_t v0 = h[0], v1 = h[1], v2 = h[2], v3 = h[3], v4 = h[4], v5 = h[5], v6 = h[6], v7 = h[7];
-  uint32_t v8 = iv(0), v9 = iv(1), v10 = iv(2), v11 = iv(3);
+// (messages below 4 GiB), last the final-block flag. One function, not
+// inlined at its call sites (the absorb's, the sampler's): a round runs each
+// once or a few times, and a copy is about 16 KB of code (PERF.md, PR 7).
+__device__ __noinline__ Words8 compress_fn(Words8 hh, Words16 mm, uint32_t t, bool last) {
+  const uint32_t* m = mm.v;
+  uint32_t v0 = hh.v[0], v1 = hh.v[1], v2 = hh.v[2], v3 = hh.v[3], v4 = hh.v[4], v5 = hh.v[5], v6 = hh.v[6];
+  uint32_t v7 = hh.v[7], v8 = iv(0), v9 = iv(1), v10 = iv(2), v11 = iv(3);
   uint32_t v12 = iv(4) ^ t, v13 = iv(5), v14 = last ? ~iv(6) : iv(6), v15 = iv(7);
   SPK_B2S_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
   SPK_B2S_ROUND(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3)
@@ -55,16 +72,35 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], ui
   SPK_B2S_ROUND(13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10)
   SPK_B2S_ROUND(6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5)
   SPK_B2S_ROUND(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0)
-  h[0] ^= v0 ^ v8;  h[1] ^= v1 ^ v9;  h[2] ^= v2 ^ v10; h[3] ^= v3 ^ v11;
-  h[4] ^= v4 ^ v12; h[5] ^= v5 ^ v13; h[6] ^= v6 ^ v14; h[7] ^= v7 ^ v15;
+  hh.v[0] ^= v0 ^ v8;  hh.v[1] ^= v1 ^ v9;  hh.v[2] ^= v2 ^ v10; hh.v[3] ^= v3 ^ v11;
+  hh.v[4] ^= v4 ^ v12; hh.v[5] ^= v5 ^ v13; hh.v[6] ^= v6 ^ v14; hh.v[7] ^= v7 ^ v15;
+  return hh;
+}
+
+__device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], uint32_t t, bool last) {
+  Words8 hh;
+  Words16 mm;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) hh.v[i] = h[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) mm.v[i] = m[i];
+  hh = compress_fn(hh, mm, t, last);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = hh.v[i];
 }
 #undef SPK_B2S_ROUND
 #undef SPK_B2S_G
 
+struct NoMark {
+  __device__ __forceinline__ void operator()(const uint32_t*) const {}
+};
+
 // out = blake2s of the nwords words at msg (byte length 4 nwords). The last
 // block is zero-padded and takes the final flag, also when it is full; an
-// empty message is one zero block.
-__device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint32_t out[8]) {
+// empty message is one zero block. mark(h) runs after each compression (the
+// cycle stamps of sumcheck.cuh's timing entry point).
+template <class Mark = NoMark>
+__device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint32_t out[8], Mark mark = Mark()) {
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = iv(i);
@@ -79,19 +115,26 @@ __device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint
       m[j] = w < nwords ? msg[w] : 0u;
     }
     compress(h, m, last ? 4u * (uint32_t)nwords : 64u * (uint32_t)(k + 1), last);
+    mark(h);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = h[i];
 }
 
-// Block `counter` of the output stream of `state`: blake2s(state || LE64).
+// Block `counter` of the output stream of `state`: blake2s(state || LE64),
+// one final compression of 40 bytes, the block built in registers.
 __device__ __forceinline__ void stream_block(const uint32_t state[8], uint32_t counter, uint32_t out[8]) {
-  uint32_t msg[10];
+  uint32_t m[16];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) msg[i] = state[i];
-  msg[8] = counter;
-  msg[9] = 0u;
-  hash_words(msg, 10, out);
+  for (int i = 0; i < 8; ++i) {
+    m[i] = state[i];
+    out[i] = iv(i);
+  }
+  m[8] = counter;
+#pragma unroll
+  for (int i = 9; i < 16; ++i) m[i] = 0u;
+  out[0] ^= 0x01010020u;
+  compress(out, m, 40u, true);
 }
 
 // One uniform Fr element (canonical words, least significant first) from the
@@ -103,9 +146,13 @@ __device__ __forceinline__ uint32_t sample_fr(const uint32_t state[8], uint32_t 
   for (;;) {
     stream_block(state, counter++, out);
     out[7] &= 0x7fffffffu;
-    int i = 7;
-    while (i > 0 && out[i] == P::mod(i)) --i;
-    if (out[i] < P::mod(i)) return counter;
+    bool lt = false, eq = true;  // out < r, compared from the top word with constant indices (no local memory)
+#pragma unroll
+    for (int i = 7; i >= 0; --i) {
+      lt = lt || (eq && out[i] < P::mod(i));
+      eq = eq && out[i] == P::mod(i);
+    }
+    if (lt) return counter;
   }
 }
 

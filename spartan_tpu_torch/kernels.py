@@ -23,10 +23,12 @@ before the carry flag); they count no launches.
 
 ``PHASE_KERNELS`` are the kernels of the device-resident sumcheck phases,
 which replace JAX functions that are not Pallas kernels: the round kernels
-K6 and K7 (``csrc/sumcheck_ops.cu``), the transcript kernels K5
-(``csrc/fs_ops.cu``) and K5's Blake2s as a batch (``blake2s_batch``, which
-only ``chip_smoke.py`` calls). Their arguments are tensors of any shape and
-ints; ``call`` launches them and counts like ``launch``.
+K6 and K7, each round with its transcript step (K5) in the same launch, and
+the one-block tails that run a phase's last rounds (``csrc/sumcheck_ops.cu``);
+and two that only ``chip_smoke.py`` calls: K6 with cycle stamps at its
+stages (``sc1_round_stamped``) and K5's Blake2s as a batch
+(``blake2s_batch``). Their arguments are tensors of any shape and ints;
+``call`` launches them and counts like ``launch``.
 """
 
 from __future__ import annotations
@@ -91,12 +93,12 @@ YARDSTICKS = {
 
 # entry point -> (source file, JAX function replaced, tensor arguments, int arguments)
 PHASE_KERNELS = {
-    "sc1_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 9, 3),
-    "prod2_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:97", 6, 3),
-    "fs_sc1_emit": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:111", 8, 2),
-    "fs_sc1_final": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:137", 7, 0),
-    "fs_sc2_emit": ("fs_ops.cu", "spartan_tpu/protocol/fused.py:154", 5, 1),
-    "blake2s_batch": ("fs_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
+    "sc1_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 18, 4),
+    "prod2_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:97", 10, 3),
+    "sc1_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:166", 14, 4),
+    "sc2_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:205", 6, 3),
+    "sc1_round_stamped": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 19, 4),
+    "blake2s_batch": ("sumcheck_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

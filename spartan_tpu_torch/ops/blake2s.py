@@ -7,8 +7,8 @@ every transcript message of the protocol is word-aligned. The result equals
 ``hashlib.blake2s`` (digest 32 bytes, no key).
 
 ``blake2s_words`` is the plain PyTorch version: the tests and the CPU route
-use it. On the card Blake2s runs only inside the transcript kernels
-(``csrc/blake2s.cuh``, called by ``csrc/fs_ops.cu``): one compression is
+use it. On the card Blake2s runs only inside the sumcheck kernels'
+transcript step (``csrc/blake2s.cuh``, called by ``csrc/fs.cuh``): one compression is
 about 300 elementwise operations, which as PyTorch launches would cost more
 host time than a whole sumcheck round. ``blake2s_batch`` hashes a batch of
 messages in one launch of the kernel's Blake2s; only ``chip_smoke.py`` calls

@@ -11,8 +11,8 @@ transcript (``utils/transcript.py``), on 32-bit words held in ``int64``:
 
 The sampler loops until it accepts, as the host does. (The JAX package draws
 24 candidates at once because XLA cannot loop inside a scan; that cap stays
-behind.) On the card these steps run inside the transcript kernels
-(``csrc/fs_ops.cu``); the functions here are what those kernels are held
+behind.) On the card these steps run inside the sumcheck kernels' transcript
+step (``csrc/fs.cuh``); the functions here are what that step is held
 against, and the route the CPU takes.
 
 An Fr element serializes as 32 little-endian bytes (``utils/serialize``),

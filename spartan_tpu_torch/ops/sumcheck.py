@@ -1,24 +1,15 @@
-"""Sumcheck round kernels: fold by the incoming challenge, then evaluate.
+"""Sumcheck rounds: fold by the incoming challenge, then evaluate.
 
 Counterpart of ``spartan_tpu/ops/sumcheck.py`` (``sc1_round`` :77,
 ``prod2_round`` :97), without the fixed-width tail padding that existed for
 XLA compile cost.
 
-Two forms of each round:
-
-- ``sc1_round``/``prod2_round`` return the evaluations at t = 0, 1, 2 as an
-  (8, 3) Montgomery tensor, from the Fr kernels K1 (one launch an operation,
-  a reduction an evaluation) on the card; the host-transcript route decodes
-  them every round.
-- ``sc1_round_dev``/``prod2_round_dev``, the rounds of the device-resident
-  phases (``protocol/fused.py``): on a CUDA tensor one launch of K6 or K7
-  (``csrc/sumcheck.cuh``) folds and evaluates and writes one partial a block
-  and evaluation, (3, blocks, 8); the transcript kernel adds them. The
-  challenge is a device tensor. On a CPU tensor they are the plain rounds
-  composed with ``sum_mod``: one partial.
-
-``PLAIN`` runs a round on the plain versions of the field operations on any
-device: it is what K6 and K7 are held against on the card.
+The rounds here return the evaluations at t = 0, 1, 2 as an (8, 3)
+Montgomery tensor, from the Fr kernels K1 (one launch an operation, a
+reduction an evaluation) on the card; the host-transcript route decodes them
+every round. ``PLAIN`` runs a round on the plain versions of the field
+operations on any device: the device-resident phases (``protocol/fused.py``)
+take it on CPU tensors, and their kernels K6 and K7 are held against it.
 """
 
 from __future__ import annotations
@@ -27,12 +18,8 @@ from functools import partial
 
 import torch
 
-from spartan_tpu_torch import kernels
 from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops.field import FR
-
-MAX_BLOCKS = 256  # the round kernels' grid at most (csrc/sumcheck.cuh, kMaxBlocks)
-THREADS = 128  # a round kernel's block (kThreads)
 
 
 class FrOps:
@@ -101,46 +88,3 @@ def prod2_round(w, z, do_fold: bool, r, ops: FrOps = K1):
         folded = ops.fold(torch.cat([w, z], dim=1), r)
         w, z = folded[:, :n], folded[:, n:]
     return prod2_evals3(w, z, ops), w, z
-
-
-def round_blocks(pairs: int) -> int:
-    """The round kernels' grid for ``pairs`` pairs: the partials they write."""
-    return max(1, min(MAX_BLOCKS, -(-pairs // THREADS)))
-
-
-def _as_partials(q: torch.Tensor) -> torch.Tensor:
-    """(8, 3) sums -> one partial an evaluation, (3, 1, 8)."""
-    return q.t().reshape(3, 1, FR.nlimb).contiguous()
-
-
-def _device_round(name: str, tables, extra, do_fold: bool, r_mont):
-    width = tables[0].shape[-1]
-    pairs = width // 4 if do_fold else width // 2
-    outs = [torch.empty((FR.nlimb, 2 * pairs), dtype=torch.int32, device=t.device) for t in tables]
-    if not do_fold:
-        outs = list(tables)  # not written
-    blocks = round_blocks(pairs)
-    partials = torch.empty((3, blocks, FR.nlimb), dtype=torch.int32, device=tables[0].device)
-    kernels.call(name, [*tables, *extra, r_mont, *outs, partials], [pairs, int(do_fold), blocks],
-                 key=(pairs, int(do_fold)))
-    return partials, outs
-
-
-def sc1_round_dev(az, bz, cz, s_table, do_fold: bool, r_mont):
-    """A sumcheck-1 round of the device-resident phase: (partials (3, B, 8)
-    Montgomery, az', bz', cz'). ``r_mont`` (8,) is the Montgomery challenge
-    in device memory (not read when ``do_fold`` is False)."""
-    if az.device.type == "cpu":
-        q, az, bz, cz = sc1_round(az, bz, cz, s_table, do_fold, r_mont, PLAIN)
-        return _as_partials(q), az, bz, cz
-    partials, (az, bz, cz) = _device_round("sc1_round", (az, bz, cz), (s_table,), do_fold, r_mont)
-    return partials, az, bz, cz
-
-
-def prod2_round_dev(w, z, do_fold: bool, r_mont):
-    """A sumcheck-2 round of the device-resident phase: (partials, w', z')."""
-    if w.device.type == "cpu":
-        q, w, z = prod2_round(w, z, do_fold, r_mont, PLAIN)
-        return _as_partials(q), w, z
-    partials, (w, z) = _device_round("prod2_round", (w, z), (), do_fold, r_mont)
-    return partials, w, z

@@ -1,25 +1,27 @@
 """The sumcheck phases with the transcript on the device.
 
 Counterpart of ``spartan_tpu/protocol/fused.py`` (``sc1_phase`` :236,
-``sc2_phase`` :284, the emit steps :111/:137/:154). The host-transcript
-route decodes every round's evaluations before it samples the next
-challenge: one sync a round. Here the transcript runs on the device: a
-round is one launch of a round kernel (K6 or K7, ``ops/sumcheck``) and one
-of a transcript kernel (K5, ``csrc/fs_ops.cu``), which adds the round
-kernel's partials, extends them to the wire's evaluations, absorbs them
-with Blake2s and samples the next challenge into device memory. The loop
-over the rounds never reads a device value. One upload starts a phase and
-one copy to the host ends it: the messages, the challenges, round 4's
-va, vb, vc and r_a, r_b, r_c, and the chain state, from which the host
-transcript resumes. The proof bytes equal the host route's.
+``sc2_phase`` :284, the emit steps :111/:137/:154, the tail programs
+:166/:205). The host-transcript route decodes every round's evaluations
+before it samples the next challenge: one sync a round. Here a round is one
+launch (``csrc/sumcheck.cuh``): the round kernel (K6 or K7) folds and
+evaluates, and the block that finishes last runs the round's transcript
+step (K5): it adds the blocks' partial sums, extends them to the wire's
+evaluations, absorbs them with Blake2s and samples the next challenge into
+device memory. From the first round of at most ``TAIL_PAIRS`` pairs one
+launch, the tail, runs every remaining round in one block (and, for
+sumcheck 1, prover round 4). The loop over the rounds never reads a device
+value. One upload starts a phase and one copy to the host ends it: the
+messages, the challenges, round 4's va, vb, vc and r_a, r_b, r_c, and the
+chain state, from which the host transcript resumes. The proof bytes equal
+the host route's.
 
-The JAX package's ``TAIL_W`` padding and ``lax.scan`` tail programs, which
-exist for XLA's compile cost, stay behind: a phase is a Python loop over
-its log_n rounds.
+The JAX package's ``TAIL_W`` padding, which exists for XLA's compile cost,
+stays behind; its tail programs became the one-block tails.
 
-On CPU tensors every step is its plain PyTorch version (``sc1_emit_plain``
-and the others below, ``ops/sumcheck``'s ``PLAIN`` rounds); on CUDA tensors
-the wrappers launch the kernels or raise.
+On CPU tensors every launch is its plain PyTorch version
+(``sc1_round_plain`` and the others below, over ``ops/sumcheck``'s
+``PLAIN`` rounds); on CUDA tensors the wrappers launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ _EMIT_CONSTS: dict = {}
 
 
 def emit_consts(deg: int, device) -> torch.Tensor:
-    """The Montgomery rows of a sumcheck-1 emit step, (5, deg + 1, 8): at
-    t = 0..deg the Lagrange coefficients through (0, q0), (1, q1), (2, q2),
+    """The Montgomery rows of a sumcheck-1 transcript step, (5, deg + 1, 8):
+    at t = 0..deg the Lagrange coefficients through (0, q0), (1, q1), (2, q2),
 
         c0(t) = (t - 1)(t - 2) / 2,  c1(t) = -t (t - 2),  c2(t) = t (t - 1) / 2,
 
@@ -58,15 +60,29 @@ def emit_consts(deg: int, device) -> torch.Tensor:
     key = (deg, str(device))
     out = _EMIT_CONSTS.get(key)
     if out is None:
-        r, inv2 = hf.R, pow(2, -1, hf.R)
-        ts = range(deg + 1)
-        rows = ([(t - 1) * (t - 2) % r * inv2 % r for t in ts] + [-t * (t - 2) % r for t in ts]
-                + [t * (t - 1) % r * inv2 % r for t in ts] + [(2 * t - 1) % r for t in ts]
-                + [(1 - t) % r for t in ts])
-        limbs = fo.encode_mont(FR, rows).t().reshape(5, deg + 1, W).contiguous()
+        limbs = fo.encode_mont(FR, [x for row in _step_rows(deg) for x in row])
+        limbs = limbs.t().reshape(5, deg + 1, W).contiguous()
         out = _upload(limbs.numpy(), torch.device(device))
         _EMIT_CONSTS[key] = out
     return out
+
+
+def _step_rows(deg: int) -> List[List[int]]:
+    """c0, c1, c2, ea, eb at t = 0..deg, as ints."""
+    r, inv2 = hf.R, pow(2, -1, hf.R)
+    ts = range(deg + 1)
+    return [[(t - 1) * (t - 2) % r * inv2 % r for t in ts], [-t * (t - 2) % r for t in ts],
+            [t * (t - 1) % r * inv2 % r for t in ts], [(2 * t - 1) % r for t in ts], [(1 - t) % r for t in ts]]
+
+
+def first_coef(tor0: int, deg: int) -> List[int]:
+    """Round 0's transcript-step coefficients (pre = 1) as ints, the rows of
+    ``coef`` (6, deg + 1, 8): K_k(t) = c_k(t) l_0(t) and K_k(t) R, with
+    l_0(t) = tor_0 ea(t) + eb(t)."""
+    c0, c1, c2, ea, eb = _step_rows(deg)
+    ell = [(tor0 * a + b) % hf.R for a, b in zip(ea, eb)]
+    k = [c * e % hf.R for row in (c0, c1, c2) for c, e in zip(row, ell)]
+    return k + [x * FR.r_mod % hf.R for x in k]
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -80,7 +96,7 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _words(ints) -> np.ndarray:
     """Canonical field ints -> (n, 8) int32 words (each row an element)."""
-    return fo.ints_to_limbs(list(ints), W).T
+    return np.ascontiguousarray(fo.ints_to_limbs(list(ints), W).T)
 
 
 def _ints(words: np.ndarray) -> List[int]:
@@ -121,8 +137,13 @@ class _Buffer:
 
 
 # ---------------------------------------------------------------------------
-# The transcript kernels (K5) and their plain versions
+# The rounds, the tails and their plain versions
 # ---------------------------------------------------------------------------
+
+THREADS = 128  # a round kernel's block (csrc/sumcheck.cuh, kThreads): 32 pairs, four lanes a pair
+MAX_BLOCKS = 1024  # a round kernel's grid at most (kMaxBlocks)
+TAIL_PAIRS = 128  # the tail takes over at the first round of at most this many pairs (kTailPairs)
+SUMS_ROWS = 7  # the round kernels' sums: 3 x 9 64-bit words, zero between launches, in rows of 8 words
 
 _m = partial(fo.mont_mul_plain, FR)
 
@@ -148,6 +169,17 @@ def _const_col(x: int, device) -> torch.Tensor:
     return fo.encode_ints(FR, [x], device)
 
 
+def round_blocks(pairs: int) -> int:
+    """A round kernel's grid for ``pairs`` pairs."""
+    return max(1, min(MAX_BLOCKS, -(-4 * pairs // THREADS)))
+
+
+def tail_start(log_n: int) -> int:
+    """The first round of at most TAIL_PAIRS pairs (round i has 2^(log_n -
+    1 - i)): the tail's first."""
+    return max(0, log_n - TAIL_PAIRS.bit_length())
+
+
 def _absorb_sample_plain(state, msg_words, r_out, r_mont):
     """Absorb ``msg_words`` (the words after the chain state), sample the
     challenge from block 0 of the new stream, write it to r_out (canonical)
@@ -162,40 +194,46 @@ def _absorb_sample_plain(state, msg_words, r_out, r_mont):
     return rm
 
 
-def _q_plain(partials: torch.Tensor) -> torch.Tensor:
-    """(3, B, 8) partials -> their sums (8, 3), Montgomery."""
-    return fo.sum_mod(partials.permute(2, 0, 1))[..., 0]
-
-
-def _from_mont(x: torch.Tensor) -> torch.Tensor:
-    return _mul(x, _const_col(1, x.device))
-
-
-def sc1_emit_plain(partials, tor_i, consts, pre, state, evals, r_out, r_mont) -> None:
-    """``fs_sc1_emit`` in PyTorch: extend q(0), q(1), q(2) (the sums of the
-    partials) to the wire's evaluations pre l_i(t) q(t) at t = 0..D-1, write
-    them canonical to evals (D, 8), absorb ser_fr_vec of them, sample r_i;
-    pre becomes pre l_i(r_i). Writes evals, r_out, r_mont, pre and state."""
-    q = _q_plain(partials)
-    c = consts.permute(2, 0, 1)  # (8, 5, D)
-    qt = _add(_mul(q[:, 0:1], c[:, 0]), _add(_mul(q[:, 1:2], c[:, 1]), _mul(q[:, 2:3], c[:, 2])))
-    tor, p = _col(tor_i), _col(pre)
-    ell = _add(_mul(tor, c[:, 3]), c[:, 4])
-    ev = _from_mont(_mul(p, _mul(ell, qt)))  # (8, D) canonical
+def _sc1_emit_plain(q, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont) -> None:
+    """A sumcheck-1 round's transcript step: the wire's evaluations ev(t) =
+    sum_k K_k(t) q(k) at t = 0..D-1 from this round's coefficients coef (6,
+    D, 8: K canonical, then K R) and q(0), q(1), q(2) ((8, 3) Montgomery),
+    canonical to evals (D, 8); absorb ser_fr_vec of them, sample r_i; pre
+    becomes pre l_i(r_i) and, when tor_next is given, coef the next round's
+    K_k(t) = pre c_k(t) l_{i+1}(t) and K R."""
+    k = coef[:3].permute(2, 0, 1)  # (8, 3, D)
+    ev = _add(_mul(k[:, 0], q[:, 0:1]), _add(_mul(k[:, 1], q[:, 1:2]), _mul(k[:, 2], q[:, 2:3])))
     evals.copy_(ev.t())
     rm = _absorb_sample_plain(state, fsd.ser_fr_vec_words(ev), r_out, r_mont)
+    tor, p = _col(tor_i), _col(pre)
     t2 = _mul(tor, rm)  # l_i(r) = 2 tor_i r - tor_i - r + 1
     ell_r = _add(_sub(_sub(_add(t2, t2), tor), rm), _const_col(FR.r_mod, rm.device))
-    pre.copy_(_mul(p, ell_r).reshape(pre.shape))
+    p = _mul(p, ell_r)
+    pre.copy_(p.reshape(pre.shape))
+    if tor_next is None:
+        return
+    c = consts.permute(2, 0, 1)  # (8, 5, D) Montgomery
+    ell = _add(_mul(_col(tor_next), c[:, 3]), c[:, 4])
+    kn = [_mul(_mul(_mul(p, c[:, m]), ell), _const_col(1, p.device)) for m in range(3)]  # (8, D) each
+    kr = [_mul(x, _const_col(FR.r_mod * FR.r_mod % FR.modulus, p.device)) for x in kn]
+    coef.copy_(torch.stack(kn + kr).permute(0, 2, 1).reshape(coef.shape))
 
 
-def sc1_final_plain(az, bz, cz, r_mont, state, vabc, rabc) -> None:
-    """``fs_sc1_final`` in PyTorch: round 4. Fold the width-2 tables by the
-    last challenge, write va, vb, vc canonical to vabc (3, 8), absorb them
-    (no prefix), sample r_a, r_b, r_c on one counter into rabc (3, 8)."""
+def _sc2_emit_plain(q, state, evals, r_out, r_mont) -> None:
+    """A sumcheck-2 round's transcript step: the three evaluations canonical
+    to evals (3, 8), absorbed with their prefix; sample r."""
+    ev = _mul(q, _const_col(1, q.device))  # (8, 3) canonical
+    evals.copy_(ev.t())
+    _absorb_sample_plain(state, fsd.ser_fr_vec_words(ev), r_out, r_mont)
+
+
+def _sc1_final_plain(az, bz, cz, r_mont, state, vabc, rabc) -> None:
+    """Round 4: fold the width-2 tables by the last challenge, write va, vb,
+    vc canonical to vabc (3, 8), absorb them (no prefix), sample r_a, r_b,
+    r_c on one counter into rabc (3, 8)."""
     r = _col(r_mont)
     abc = torch.cat([az, bz, cz], dim=1)  # (8, 6)
-    v = _from_mont(_add(abc[:, 0::2], _mul(_sub(abc[:, 1::2], abc[:, 0::2]), r)))  # (8, 3)
+    v = _mul(_add(abc[:, 0::2], _mul(_sub(abc[:, 1::2], abc[:, 0::2]), r)), _const_col(1, r.device))
     vabc.copy_(v.t())
     st = fsd.fs_feed(fsd.as_words(state.reshape(-1)), fsd.limbs_to_words(v).reshape(-1))
     ctr = 0
@@ -205,39 +243,108 @@ def sc1_final_plain(az, bz, cz, r_mont, state, vabc, rabc) -> None:
     state.copy_(fsd.as_int32(st).reshape(state.shape))
 
 
-def sc2_emit_plain(partials, state, evals, r_out, r_mont) -> None:
-    """``fs_sc2_emit`` in PyTorch: the three evaluations canonical to evals
-    (3, 8), absorbed with their prefix; sample r."""
-    ev = _from_mont(_q_plain(partials))  # (8, 3)
-    evals.copy_(ev.t())
-    _absorb_sample_plain(state, fsd.ser_fr_vec_words(ev), r_out, r_mont)
+def sc1_round_plain(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont):
+    """``sc1_round`` in PyTorch: the round (fold by r_mont when ``fold``,
+    evaluate) and its transcript step. Returns the tables entering the next
+    round; writes evals, r_out, r_mont, pre, coef and state."""
+    q, az, bz, cz = sck.sc1_round(az, bz, cz, s, fold, r_mont, sck.PLAIN)
+    _sc1_emit_plain(q, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont)
+    return az, bz, cz
 
 
-def sc1_emit(partials, tor_i, consts, pre, state, evals, r_out, r_mont) -> None:
-    """K5 ``fs_sc1_emit`` on CUDA tensors; ``sc1_emit_plain`` on CPU ones."""
-    if partials.device.type == "cpu":
-        return sc1_emit_plain(partials, tor_i, consts, pre, state, evals, r_out, r_mont)
-    nblocks, d = partials.shape[1], consts.shape[1]
-    kernels.call("fs_sc1_emit", [partials, tor_i, consts, pre, state, evals, r_out, r_mont],
-                 [nblocks, d], key=(nblocks, d))
+def prod2_round_plain(w, z, fold, state, evals, r_out, r_mont):
+    """``prod2_round`` in PyTorch: the round and its transcript step."""
+    q, w, z = sck.prod2_round(w, z, fold, r_mont, sck.PLAIN)
+    _sc2_emit_plain(q, state, evals, r_out, r_mont)
+    return w, z
 
 
-def sc1_final(az, bz, cz, r_mont, state, vabc, rabc) -> None:
-    """K5 ``fs_sc1_final`` on CUDA tensors; ``sc1_final_plain`` on CPU ones."""
-    if az.shape[-1] != 2:
-        raise ValueError(f"round 4 folds width-2 tables, got width {az.shape[-1]}")
+def _weights(s_cat: torch.Tensor, pairs0: int):
+    """The tail's weight tables, (8, pairs) each, from their concatenation."""
+    out, off, pairs = [], 0, pairs0
+    while pairs >= 1:
+        out.append(s_cat[off : off + W * pairs].view(W, pairs))
+        off, pairs = off + W * pairs, pairs // 2
+    return out
+
+
+def sc1_tail_plain(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc,
+                   rabc) -> None:
+    """``sc1_tail`` in PyTorch: the rounds from the tables entering the
+    first (width 4 pairs0 when ``fold``, else 2 pairs0) down to one pair,
+    then round 4. tor (rounds, 8), coef the first round's (6, D, 8), evals
+    (rounds, D, 8), rs (rounds, 8)."""
+    pairs0 = az.shape[-1] // (4 if fold else 2)
+    weights = _weights(s_cat, pairs0)
+    coef = coef.clone()  # the tail keeps the later rounds' coefficients to itself
+    for k, s in enumerate(weights):
+        nxt = tor[k + 1] if k + 1 < len(weights) else None
+        az, bz, cz = sc1_round_plain(az, bz, cz, s, fold or k > 0, consts, tor[k], nxt, pre, coef, state, evals[k],
+                                     rs[k], r_mont)
+    _sc1_final_plain(az, bz, cz, r_mont, state, vabc, rabc)
+
+
+def sc2_tail_plain(w, z, fold, state, evals, rs, r_mont) -> None:
+    """``sc2_tail`` in PyTorch: the rounds down to one pair."""
+    pairs0 = w.shape[-1] // (4 if fold else 2)
+    for k in range(pairs0.bit_length()):
+        w, z = prod2_round_plain(w, z, fold or k > 0, state, evals[k], rs[k], r_mont)
+
+
+def _pairs(table: torch.Tensor, fold: bool) -> int:
+    return table.shape[-1] // (4 if fold else 2)
+
+
+def sc1_round(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, sums):
+    """K6 with its transcript step (``sc1_round_kernel``) on CUDA tensors,
+    one launch; ``sc1_round_plain`` on CPU ones. ctr (the ticket counter)
+    and sums (SUMS_ROWS rows) are zero between launches."""
     if az.device.type == "cpu":
-        return sc1_final_plain(az, bz, cz, r_mont, state, vabc, rabc)
-    kernels.call("fs_sc1_final", [az.contiguous(), bz.contiguous(), cz.contiguous(), r_mont, state,
-                                  vabc, rabc], [], key=(2,))
+        return sc1_round_plain(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out,
+                               r_mont)
+    pairs = _pairs(az, fold)
+    tabs = [t.contiguous() for t in (az, bz, cz)]
+    outs = ([torch.empty((W, 2 * pairs), dtype=torch.int32, device=az.device) for _ in tabs] if fold else tabs)
+    kernels.call("sc1_round", [*tabs, s, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr,
+                               *outs, sums],
+                 [pairs, int(fold), round_blocks(pairs), consts.shape[1]], key=(pairs, int(fold)))
+    return tuple(outs)
 
 
-def sc2_emit(partials, state, evals, r_out, r_mont) -> None:
-    """K5 ``fs_sc2_emit`` on CUDA tensors; ``sc2_emit_plain`` on CPU ones."""
-    if partials.device.type == "cpu":
-        return sc2_emit_plain(partials, state, evals, r_out, r_mont)
-    kernels.call("fs_sc2_emit", [partials, state, evals, r_out, r_mont], [partials.shape[1]],
-                 key=(partials.shape[1],))
+def prod2_round(w, z, fold, state, evals, r_out, r_mont, ctr, sums):
+    """K7 with its transcript step (``prod2_round_kernel``) on CUDA tensors;
+    ``prod2_round_plain`` on CPU ones."""
+    if w.device.type == "cpu":
+        return prod2_round_plain(w, z, fold, state, evals, r_out, r_mont)
+    pairs = _pairs(w, fold)
+    tabs = [t.contiguous() for t in (w, z)]
+    outs = ([torch.empty((W, 2 * pairs), dtype=torch.int32, device=w.device) for _ in tabs] if fold else tabs)
+    kernels.call("prod2_round", [*tabs, state, evals, r_out, r_mont, ctr, *outs, sums],
+                 [pairs, int(fold), round_blocks(pairs)], key=(pairs, int(fold)))
+    return tuple(outs)
+
+
+def sc1_tail(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc) -> None:
+    """The one-block tail of sumcheck 1 with round 4 (``sc1_tail_kernel``)
+    on CUDA tensors; ``sc1_tail_plain`` on CPU ones. s_cat: the rounds'
+    weight tables flattened one after the other."""
+    if az.device.type == "cpu":
+        return sc1_tail_plain(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc,
+                              rabc)
+    pairs0 = _pairs(az, fold)
+    kernels.call("sc1_tail", [az.contiguous(), bz.contiguous(), cz.contiguous(), s_cat, consts, tor, pre, coef,
+                              state, evals, rs, r_mont, vabc, rabc],
+                 [pairs0, int(fold), pairs0.bit_length(), consts.shape[1]], key=(pairs0, int(fold)))
+
+
+def sc2_tail(w, z, fold, state, evals, rs, r_mont) -> None:
+    """The one-block tail of sumcheck 2 (``sc2_tail_kernel``) on CUDA
+    tensors; ``sc2_tail_plain`` on CPU ones."""
+    if w.device.type == "cpu":
+        return sc2_tail_plain(w, z, fold, state, evals, rs, r_mont)
+    pairs0 = _pairs(w, fold)
+    kernels.call("sc2_tail", [w.contiguous(), z.contiguous(), state, evals, rs, r_mont],
+                 [pairs0, int(fold), pairs0.bit_length()], key=(pairs0, int(fold)))
 
 
 # ---------------------------------------------------------------------------
@@ -266,21 +373,26 @@ def sc1_phase(az, bz, cz, suffix, tor: List[int], state: bytes) -> Sc1Result:
     tor (``mle.eq_suffix_tables``); tor: the log_n challenges as ints;
     state: the chain state after the third prover message."""
     log_n = len(tor)
-    d = log_n + 3
+    d, i0 = log_n + 3, tail_start(log_n)
     buf = _Buffer([("evals", log_n * d), ("rs", log_n), ("vabc", 3), ("rabc", 3), ("state", 1),
-                   ("pre", 1), ("r_mont", 1), ("tor", log_n)])
+                   ("pre", 1), ("r_mont", 1), ("tor", log_n), ("ctr", 1), ("sums", SUMS_ROWS),
+                   ("coef", 6 * d)])
     buf.set("state", fsd.as_int32(fsd.state_to_words(state)).numpy())
     buf.set("pre", _words([FR.r_mod]))  # 1 in Montgomery form
     buf.set("tor", _words([t * FR.r_mod % FR.modulus for t in tor]))
+    buf.set("coef", _words(first_coef(tor[0], d - 1)))
     dev = az.device
     buf.upload(dev)
     consts = emit_consts(log_n + 2, dev)
     evals, rs, tor_m = buf.view("evals").view(log_n, d, W), buf.view("rs"), buf.view("tor")
     pre, st, r_mont = buf.view("pre"), buf.view("state"), buf.view("r_mont")
-    for i in range(log_n):  # round 0 takes no fold: r_mont is not read
-        partials, az, bz, cz = sck.sc1_round_dev(az, bz, cz, suffix[i + 1], i > 0, r_mont)
-        sc1_emit(partials, tor_m[i], consts, pre, st, evals[i], rs[i], r_mont)
-    sc1_final(az, bz, cz, r_mont, st, buf.view("vabc"), buf.view("rabc"))
+    coef = buf.view("coef").view(6, d, W)
+    for i in range(i0):  # round 0 takes no fold: r_mont is not read
+        az, bz, cz = sc1_round(az, bz, cz, suffix[i + 1], i > 0, consts, tor_m[i], tor_m[i + 1], pre, coef, st,
+                               evals[i], rs[i], r_mont, buf.view("ctr"), buf.view("sums"))
+    s_cat = torch.cat([suffix[j].reshape(-1) for j in range(i0 + 1, log_n + 1)])
+    sc1_tail(az, bz, cz, s_cat, i0 > 0, consts, tor_m[i0:], pre, coef, st, evals[i0:], rs[i0:], r_mont,
+             buf.view("vabc"), buf.view("rabc"))
     buf.fetch()
     ev = _ints(buf.get("evals"))
     return Sc1Result(evals=[ev[i * d : (i + 1) * d] for i in range(log_n)], rs=_ints(buf.get("rs")),
@@ -292,14 +404,16 @@ def sc2_phase(w, z, state: bytes) -> Sc2Result:
     """Sumcheck 2 with the transcript on the device. w, z: (8, n) Montgomery
     tables; state: the chain state after the fifth prover message."""
     log_n = w.shape[-1].bit_length() - 1
-    buf = _Buffer([("evals", 3 * log_n), ("rs", log_n), ("state", 1), ("r_mont", 1)])
+    i0 = tail_start(log_n)
+    buf = _Buffer([("evals", 3 * log_n), ("rs", log_n), ("state", 1), ("r_mont", 1), ("ctr", 1),
+                   ("sums", SUMS_ROWS)])
     buf.set("state", fsd.as_int32(fsd.state_to_words(state)).numpy())
     buf.upload(w.device)
     evals, rs = buf.view("evals").view(log_n, 3, W), buf.view("rs")
     st, r_mont = buf.view("state"), buf.view("r_mont")
-    for i in range(log_n):
-        partials, w, z = sck.prod2_round_dev(w, z, i > 0, r_mont)
-        sc2_emit(partials, st, evals[i], rs[i], r_mont)
+    for i in range(i0):
+        w, z = prod2_round(w, z, i > 0, st, evals[i], rs[i], r_mont, buf.view("ctr"), buf.view("sums"))
+    sc2_tail(w, z, i0 > 0, st, evals[i0:], rs[i0:], r_mont)
     buf.fetch()
     ev = _ints(buf.get("evals"))
     return Sc2Result(evals=[ev[3 * i : 3 * (i + 1)] for i in range(log_n)], rs=_ints(buf.get("rs")),

@@ -3,7 +3,8 @@
 // thread, one block at a time) so that the CPU tests can hold the kernels'
 // own arithmetic against the plain PyTorch versions. Shuffles, ballots and
 // __syncwarp are barriers over the warp or the team; the device code's
-// carry flag is fp_cc.cuh's host branch.
+// carry flag is fp_cc.cuh's host branch. Blocks run one after another, so a
+// ticket counter taken with atomicAdd makes the last block the last to run.
 #pragma once
 #include <cstdint>
 #include <thread>
@@ -13,11 +14,13 @@
 #include <mutex>
 #include <functional>
 #include <memory>
+#include <atomic>
 
 #define __device__
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __constant__
 #define __restrict__
 #define __launch_bounds__(...)
@@ -30,6 +33,22 @@ inline thread_local Dim threadIdx, blockIdx;
 inline Dim blockDim, gridDim;
 
 inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xffu) << (8 * i);
+  return r;
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t n) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (n & 31));
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline uint32_t atomicAdd(uint32_t* p, uint32_t v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+template <class V> inline V __ldcg(const V* p) { return *(const volatile V*)p; }
+inline long long clock64() { return 0; }
 
 struct ShimBlock {
   int nthreads;
@@ -66,6 +85,9 @@ template <class V> inline V __shfl_sync(unsigned, V v, int src) { return shim_ex
 template <class V> inline V __shfl_down_sync(unsigned, V v, unsigned d) {
   int lane = threadIdx.x % 32;
   return shim_exchange(v, lane + (int)d < 32 ? lane + (int)d : lane);
+}
+template <class V> inline V __shfl_xor_sync(unsigned, V v, int m) {
+  return shim_exchange(v, (threadIdx.x % 32) ^ m);
 }
 template <class V> inline V __shfl_up_sync(unsigned, V v, unsigned d) {
   int lane = threadIdx.x % 32;

@@ -5,10 +5,11 @@ PyTorch versions: the team point kernels (G1 and G2 add, mixed add and
 (one thread a point on the carry flag), the carry-flag Montgomery product
 of fr_mul (and its Fp instantiation, the point kernels' product), both
 versions of the Fp Fermat inversion, and the sumcheck-phase kernels: the
-Blake2s of the transcript kernels against ``hashlib``, their sampler against
-the host stream, the round kernels K6 and K7 (over several blocks, so the
-partial sums run) and the transcript kernels K5 against their plain
-versions. This holds the kernels' own arithmetic, tables and edge rules on
+Blake2s of the transcript step against ``hashlib``, its sampler against the
+host stream, the unreduced sums and their reduction against Python integers,
+the round kernels K6 and K7 with their transcript step (over one to three
+blocks, so the partials and the last block's ticket run) and the one-block
+tails against their plain versions. This holds the kernels' own arithmetic, tables and edge rules on
 the CPU. Every ``.cu`` file, entry points and launches included, also goes
 through ``g++ -fsyntax-only`` with the CUDA runtime stubbed, which finds a
 C++ error before a build on the card; whether nvcc accepts them, and how
@@ -37,6 +38,7 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent
 CSRC = ROOT.parent / "spartan_tpu_torch" / "csrc"
 ENTRY = r"""
+#include <algorithm>
 #include "team.cuh"
 #include "fp_inv.cuh"
 #include "point.cuh"
@@ -90,41 +92,69 @@ extern "C" uint32_t host_sample_fr(const uint32_t* state, uint32_t counter, uint
   return b2s::sample_fr<FrParams>(state, counter, out);
 }
 
-// The round kernels at any block size and grid (the card's are sck::kThreads
-// and round_blocks); t: the tables' inputs then outputs, as the entry points.
-extern "C" int host_round(int sc1, const uint32_t* const* t, uint32_t* partials, int64_t pairs, int fold,
-                          int threads, int blocks) {
+// A round launch with its transcript step (K6 or K7 with K5): t the entry
+// point's pointer arguments in order, blocks the grid (round_blocks).
+extern "C" int host_round(int sc1, void* const* t, int64_t pairs, int fold, int blocks, int D) {
+  using U = uint32_t*;
+  using W = unsigned long long*;
+  using C = const uint32_t*;
   if (sc1)
-    shim_launch(blocks, threads, [&] {
-      sc1_round_kernel(t[0], t[1], t[2], t[3], t[4], (uint32_t*)t[5], (uint32_t*)t[6], (uint32_t*)t[7],
-                       partials, pairs, fold);
+    shim_launch(blocks, sck::kThreads, [&] {
+      sc1_round_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), C(t[6]), U(t[7]), U(t[8]), U(t[9]),
+                       U(t[10]), U(t[11]), U(t[12]), U(t[13]), U(t[14]), U(t[15]), U(t[16]), W(t[17]), pairs, fold,
+                       D);
     });
   else
-    shim_launch(blocks, threads, [&] {
-      prod2_round_kernel(t[0], t[1], t[2], (uint32_t*)t[3], (uint32_t*)t[4], partials, pairs, fold);
+    shim_launch(blocks, sck::kThreads, [&] {
+      prod2_round_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), U(t[6]), U(t[7]), U(t[8]),
+                         W(t[9]), pairs, fold);
     });
   return 0;
 }
 
-extern "C" int host_fs_sc1_emit(const uint32_t* partials, const uint32_t* tor_i, const uint32_t* consts,
-                                uint32_t* pre, uint32_t* state, uint32_t* evals, uint32_t* r_out,
-                                uint32_t* r_mont, int64_t nblocks, int D) {
-  shim_launch(1, fs::kThreads, [&] {
-    fs_sc1_emit_kernel(partials, tor_i, consts, pre, state, evals, r_out, r_mont, nblocks, D);
+// A one-block tail, at the entry point's block size.
+extern "C" int host_tail(int sc1, void* const* t, int64_t pairs0, int fold, int rounds, int D) {
+  using U = uint32_t*;
+  using C = const uint32_t*;
+  const unsigned threads = (unsigned)std::min<int64_t>(sck::kTailThreads, std::max<int64_t>(32, 4 * pairs0));
+  if (sc1)
+    shim_launch(1, threads, [&] {
+      sc1_tail_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), U(t[6]), C(t[7]), U(t[8]), U(t[9]),
+                      U(t[10]), U(t[11]), U(t[12]), U(t[13]), pairs0, fold, rounds, D);
+    });
+  else
+    shim_launch(1, threads, [&] {
+      sc2_tail_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), pairs0, fold, rounds);
+    });
+  return 0;
+}
+
+// The unreduced sum (fr_sum.cuh) of n canonical elements (rows of 8 words),
+// a warp's lanes taking every 32nd and then summed across the warp, into
+// acc (9 words), and its reduction into fr (8 words): acc_mul with y = R mod
+// r (y R^-1 = 1) and y R = R^2 is the sum mod r.
+Fr host_mod_r(const sck::Acc& s) {
+  return sck::acc_mul(sck::fr_const(sck::SPK_FR_ONE_MONT), sck::fr_const(sck::SPK_FR_R2), s);
+}
+
+extern "C" int host_acc_sum(const uint32_t* terms, int64_t n, uint32_t* acc, uint32_t* fr) {
+  shim_launch(1, 32, [&] {
+    sck::Acc s = sck::acc_zero();
+    for (int64_t i = threadIdx.x; i < n; i += 32) sck::acc_add(s, sck::load8(terms + 8 * i));
+    s = sck::acc_warp_sum(s, 1);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 9; ++i) acc[i] = s.v[i];
+      sck::store8(fr, host_mod_r(s));
+    }
   });
   return 0;
 }
 
-extern "C" int host_fs_sc1_final(const uint32_t* az, const uint32_t* bz, const uint32_t* cz,
-                                 const uint32_t* r_mont, uint32_t* state, uint32_t* vabc, uint32_t* rabc) {
-  shim_launch(1, 32, [&] { fs_sc1_final_kernel(az, bz, cz, r_mont, state, vabc, rabc); });
-  return 0;
-}
-
-extern "C" int host_fs_sc2_emit(const uint32_t* partials, uint32_t* state, uint32_t* evals, uint32_t* r_out,
-                                uint32_t* r_mont, int64_t nblocks) {
-  shim_launch(1, fs::kThreads, [&] { fs_sc2_emit_kernel(partials, state, evals, r_out, r_mont, nblocks); });
-  return 0;
+// The reduction of a given 9-word value (any value below 2^288).
+extern "C" void host_mod_r9(const uint32_t* acc, uint32_t* fr) {
+  sck::Acc s;
+  for (int i = 0; i < 9; ++i) s.v[i] = acc[i];
+  sck::store8(fr, host_mod_r(s));
 }
 
 extern "C" int host_fp_inv(int warp, const uint32_t* a, uint32_t* out, int64_t n) {
@@ -146,11 +176,9 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     for src in CSRC.glob("*.cu*"):
         text = src.read_text()
-        if src.name == "team.cuh":  # dynamic shared memory: a static buffer
-            dyn = "extern __shared__ uint4 smem[];"
-            assert dyn in text
-            text = text.replace(dyn, "static uint4 smem[16384];")
-        (d / src.name).write_text(text)
+        dyn = "extern __shared__ uint4 smem[];"  # dynamic shared memory: a static buffer
+        assert (dyn in text) == (src.name in ("team.cuh", "sumcheck.cuh")), src.name
+        (d / src.name).write_text(text.replace(dyn, "static uint4 smem[16384];"))
     (d / "entry.cpp").write_text(ENTRY)
     so = d / "libcsrc_host.so"
     subprocess.run([gxx, "-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
@@ -165,10 +193,9 @@ def lib(tmp_path_factory):
     lib.host_blake2s_batch.argtypes = [vp, vp, i64, i32]
     lib.host_sample_fr.argtypes = [vp, ctypes.c_uint32, vp]
     lib.host_sample_fr.restype = ctypes.c_uint32
-    lib.host_round.argtypes = [i32, vp, vp, i64, i32, i32, i32]
-    lib.host_fs_sc1_emit.argtypes = [vp] * 8 + [i64, i32]
-    lib.host_fs_sc1_final.argtypes = [vp] * 7
-    lib.host_fs_sc2_emit.argtypes = [vp] * 5 + [i64]
+    lib.host_round.argtypes = lib.host_tail.argtypes = [i32, vp, i64, i32, i32, i32]
+    lib.host_acc_sum.argtypes = [vp, i64, vp, vp]
+    lib.host_mod_r9.argtypes = [vp, vp]
     return lib
 
 
@@ -383,67 +410,157 @@ def _fr_table(rng, n):
     return tf.encode_mont(tf.FR, [rng.randrange(hf.R) for _ in range(n)])
 
 
-# (pairs, threads a block, blocks, fold): the grid loop, and partials over several blocks
-ROUND_SHAPES = [(4, 32, 1, 0), (64, 32, 3, 1), (64, 64, 2, 1)]
+def _el(rng):
+    return _fr_table(rng, 1).reshape(8).contiguous()
 
 
-@pytest.mark.parametrize("shape", ROUND_SHAPES, ids=lambda s: "p{}-t{}-b{}-f{}".format(*s))
+def _zeros(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+def _coef(rng, d):
+    """A transcript step's coefficients (6, d, 8), as the round before hands
+    them on: K canonical, then K R."""
+    k = [rng.randrange(hf.R) for _ in range(3 * d)]
+    return tf.encode_ints(tf.FR, k + [x * tf.FR.r_mod % hf.R for x in k]).t().reshape(6, d, 8).contiguous()
+
+
+def _run_both(lib_call, plain, args: dict):
+    """Run the host-compiled kernel and the plain version on copies of the
+    same arguments; return both copies."""
+    kern = {k: v.clone() for k, v in args.items()}
+    ref = {k: v.clone() for k, v in args.items()}
+    lib_call(kern)
+    got = plain(ref)
+    return kern, ref, got
+
+
+# (pairs, fold): the round kernels at 1, 2 and 3 blocks (32 pairs a block),
+# so the partials, the ticket and the last block's transcript step all run
+ROUND_SHAPES = [(16, 0), (64, 1), (96, 1)]
+
+
+@pytest.mark.parametrize("shape", ROUND_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
 @pytest.mark.parametrize("kernel", ["sc1_round", "prod2_round"])
 def test_round_kernel_sources_match_plain(lib, kernel, shape):
-    """K6 and K7 (sumcheck.cuh): the folded tables and the partials' sum mod r
-    against the plain round (ops.sumcheck with PLAIN), at 4 and 64 pairs."""
-    from spartan_tpu_torch.ops import sumcheck as tsc
+    """K6 and K7 with their transcript step (sumcheck.cuh, fs.cuh) against
+    protocol.fused's plain rounds: the folded tables, the evaluations, the
+    challenge canonical and Montgomery, pre and the chain state; the ticket
+    counter and the sums are back at 0."""
+    from spartan_tpu_torch.protocol import fused
 
-    pairs, threads, blocks, fold = shape
+    pairs, fold = shape
     rng = random.Random(pairs * 7 + fold)
     width = (4 if fold else 2) * pairs
     nt = 3 if kernel == "sc1_round" else 2
-    tabs = [_fr_table(rng, width) for _ in range(nt)]
-    s_tab = _fr_table(rng, pairs)
-    r = _fr_table(rng, 1)
-    outs = [torch.zeros((8, 2 * pairs), dtype=torch.int32) for _ in range(nt)]
-    partials = torch.zeros((3, blocks, 8), dtype=torch.int32)
-    ins = tabs + ([s_tab] if nt == 3 else []) + [r.t().contiguous()]
-    ptrs = (ctypes.c_void_p * (2 * nt + len(ins) - nt))(*[_ptr(t) for t in ins + outs])
-    assert lib.host_round(nt == 3, ptrs, _ptr(partials), pairs, fold, threads, blocks) == 0
+    log_n = 5
+    args = {f"t{k}": _fr_table(rng, width) for k in range(nt)}
+    d = log_n + 3 if nt == 3 else 3
     if nt == 3:
-        q, *want = tsc.sc1_round(*tabs, s_tab, bool(fold), r, tsc.PLAIN)
-    else:
-        q, *want = tsc.prod2_round(*tabs, bool(fold), r, tsc.PLAIN)
-    assert torch.equal(tf.sum_mod(partials.permute(2, 0, 1))[..., 0], q)
+        args |= {"s": _fr_table(rng, pairs), "consts": fused.emit_consts(log_n + 2, "cpu"), "tor_i": _el(rng),
+                 "tor_next": _el(rng), "pre": _el(rng), "coef": _coef(rng, d)}
+    args |= {"state": _el(rng), "evals": _zeros(d, 8), "r_out": _zeros(8), "r_mont": _el(rng), "ctr": _zeros(8)}
+    outs = {f"o{k}": _zeros(8, 2 * pairs) for k in range(nt)}
+    blocks = fused.round_blocks(pairs)
+    assert blocks == (pairs + 31) // 32
+
+    def kernel_call(a):
+        a |= outs if fold else {f"o{k}": a[f"t{k}"] for k in range(nt)}
+        a["sums"] = _zeros(fused.SUMS_ROWS, 8)
+        ptrs = (ctypes.c_void_p * len(a))(*[_ptr(t) for t in a.values()])
+        assert lib.host_round(nt == 3, ptrs, pairs, fold, blocks, d) == 0
+
+    def plain(a):
+        tabs = [a[f"t{k}"] for k in range(nt)]
+        if nt == 3:
+            return fused.sc1_round_plain(*tabs, a["s"], bool(fold), a["consts"], a["tor_i"], a["tor_next"],
+                                         a["pre"], a["coef"], a["state"], a["evals"], a["r_out"], a["r_mont"])
+        return fused.prod2_round_plain(*tabs, bool(fold), a["state"], a["evals"], a["r_out"], a["r_mont"])
+
+    kern, ref, want = _run_both(kernel_call, plain, args)
+    for k in args:
+        assert torch.equal(kern[k], ref[k]), k
+    assert not kern["sums"].any()
     if fold:
-        assert all(torch.equal(o, x) for o, x in zip(outs, want))
+        assert all(torch.equal(kern[f"o{k}"], want[k]) for k in range(nt))
 
 
-@pytest.mark.parametrize("step", ["sc1_emit", "sc1_final", "sc2_emit"])
-def test_transcript_kernel_sources_match_plain(lib, step):
-    """K5 (fs.cuh) against protocol.fused's plain versions: every buffer it
-    writes (evaluations, challenge canonical and Montgomery, pre, the chain
-    state; round 4's va, vb, vc and r_a, r_b, r_c), from 5 partials."""
+# (pairs0, fold): the tail from 4 pairs (warp 0 alone), from 16 without the
+# fold (round 0 of a 2^5 phase) and from 32 (every warp, then warp 0)
+TAIL_SHAPES = [(4, 1), (16, 0), (32, 1)]
+
+
+@pytest.mark.parametrize("shape", TAIL_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
+@pytest.mark.parametrize("kernel", ["sc1_tail", "sc2_tail"])
+def test_tail_kernel_sources_match_plain(lib, kernel, shape):
+    """The one-block tails (sumcheck.cuh) against protocol.fused's plain
+    tails: every round's evaluations and challenge, r_mont, pre, the chain
+    state, and for sumcheck 1 round 4's va, vb, vc and r_a, r_b, r_c."""
     from spartan_tpu_torch.protocol import fused
 
-    rng = random.Random(len(step))
-    el = lambda: _fr_table(rng, 1).t().contiguous()  # noqa: E731
-    state = torch.from_numpy(np.frombuffer(bytes(rng.randrange(256) for _ in range(32)), dtype="<i4").copy())
-    partials = _fr_table(rng, 15).t().reshape(3, 5, 8).contiguous()
-    if step == "sc1_emit":
-        log_n = 5
-        consts = fused.emit_consts(log_n + 2, "cpu")
-        args = {"partials": partials, "tor_i": el().reshape(8), "consts": consts, "pre": el().reshape(8),
-                "state": state, "evals": torch.zeros((log_n + 3, 8), dtype=torch.int32),
-                "r_out": torch.zeros(8, dtype=torch.int32), "r_mont": torch.zeros(8, dtype=torch.int32)}
-        run = lambda a: lib.host_fs_sc1_emit(*[_ptr(t) for t in a.values()], 5, log_n + 3)  # noqa: E731
-    elif step == "sc1_final":
-        args = {"az": _fr_table(rng, 2), "bz": _fr_table(rng, 2), "cz": _fr_table(rng, 2),
-                "r_mont": el().reshape(8), "state": state, "vabc": torch.zeros((3, 8), dtype=torch.int32),
-                "rabc": torch.zeros((3, 8), dtype=torch.int32)}
-        run = lambda a: lib.host_fs_sc1_final(*[_ptr(t) for t in a.values()])  # noqa: E731
-    else:
-        args = {"partials": partials, "state": state, "evals": torch.zeros((3, 8), dtype=torch.int32),
-                "r_out": torch.zeros(8, dtype=torch.int32), "r_mont": torch.zeros(8, dtype=torch.int32)}
-        run = lambda a: lib.host_fs_sc2_emit(*[_ptr(t) for t in a.values()], 5)  # noqa: E731
-    kern = {k: v.clone() for k, v in args.items()}
-    assert run(kern) == 0
-    getattr(fused, step + "_plain")(*args.values())
+    pairs0, fold = shape
+    rounds = pairs0.bit_length()
+    rng = random.Random(pairs0 * 5 + fold)
+    width = (4 if fold else 2) * pairs0
+    nt = 3 if kernel == "sc1_tail" else 2
+    log_n = 6
+    args = {f"t{k}": _fr_table(rng, width) for k in range(nt)}
+    d = log_n + 3 if nt == 3 else 3
+    if nt == 3:
+        args |= {"s_cat": torch.cat([_fr_table(rng, pairs0 >> k).reshape(-1) for k in range(rounds)]),
+                 "consts": fused.emit_consts(log_n + 2, "cpu"), "tor": _fr_table(rng, rounds).t().contiguous(),
+                 "pre": _el(rng), "coef": _coef(rng, d)}
+    args |= {"state": _el(rng), "evals": _zeros(rounds, d, 8), "rs": _zeros(rounds, 8), "r_mont": _el(rng)}
+    if nt == 3:
+        args |= {"vabc": _zeros(3, 8), "rabc": _zeros(3, 8)}
+
+    def kernel_call(a):
+        ptrs = (ctypes.c_void_p * len(a))(*[_ptr(t) for t in a.values()])
+        assert lib.host_tail(nt == 3, ptrs, pairs0, fold, rounds, d) == 0
+
+    def plain(a):
+        tabs = [a[f"t{k}"] for k in range(nt)]
+        if nt == 3:
+            return fused.sc1_tail_plain(*tabs, a["s_cat"], bool(fold), a["consts"], a["tor"], a["pre"], a["coef"],
+                                        a["state"], a["evals"], a["rs"], a["r_mont"], a["vabc"], a["rabc"])
+        return fused.sc2_tail_plain(*tabs, bool(fold), a["state"], a["evals"], a["rs"], a["r_mont"])
+
+    kern, ref, _ = _run_both(kernel_call, plain, args)
     for k in args:
-        assert torch.equal(kern[k], args[k]), k
+        assert torch.equal(kern[k], ref[k]), k
+
+
+def _words_of(x: int, n: int) -> np.ndarray:
+    return np.array([(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)], dtype=np.uint32)
+
+
+def _int_of(words: np.ndarray) -> int:
+    return sum(int(w) << (32 * i) for i, w in enumerate(words))
+
+
+@pytest.mark.parametrize("case", ["r-1 x 1", "r-1 x 32", "r-1 x 1024", "random x 37"])
+def test_unreduced_sum_matches_python_ints(lib, case):
+    """fr_sum.cuh's 9-word sum on the carry flag, summed across a warp, and
+    its reduction: the exact sum and the sum mod r of Python integers, with
+    every term r - 1 (the largest canonical value) at 2^k terms."""
+    what, n = case.split(" x ")
+    n = int(n)
+    rng = random.Random(n)
+    xs = [hf.R - 1] * n if what == "r-1" else [rng.randrange(hf.R) for _ in range(n)]
+    terms = np.ascontiguousarray(np.stack([_words_of(x, 8) for x in xs]))
+    acc, fr = np.zeros(9, dtype=np.uint32), np.zeros(8, dtype=np.uint32)
+    assert lib.host_acc_sum(terms.ctypes.data, n, acc.ctypes.data, fr.ctypes.data) == 0
+    assert _int_of(acc) == sum(xs)
+    assert _int_of(fr) == sum(xs) % hf.R
+
+
+@pytest.mark.parametrize("value", ["0", "r-1", "r", "2^256-1", "2^288-1", "random"])
+def test_unreduced_sum_reduction_at_the_edges(lib, value):
+    """acc_mul's reduction (the low 256 bits less r at most twice, and the
+    top word times 2^256 mod r) against Python's mod r, at the edges of 9
+    words."""
+    x = {"0": 0, "r-1": hf.R - 1, "r": hf.R, "2^256-1": (1 << 256) - 1, "2^288-1": (1 << 288) - 1,
+         "random": random.Random(41).randrange(1 << 288)}[value]
+    fr = np.zeros(8, dtype=np.uint32)
+    lib.host_mod_r9(_words_of(x, 9).ctypes.data, fr.ctypes.data)
+    assert _int_of(fr) == x % hf.R

@@ -7,6 +7,13 @@ tests/test_torch_csrc_host.py here and by chip_smoke.py on the card):
 - the serialization words of Fr, feed and sample against the JAX package's
   ``fs_device`` and the port's host ``Blake2sRng``, rejections included;
 - ``get_state``/``set_state`` of the native and the Python stream;
+- the device-resident phases' plain versions (the route the CPU takes, and
+  what the kernels are held against) at log_n = 3..10: their messages,
+  challenges, round 4's values and chain states equal those of the JAX
+  package's ``fused.sc1_phase`` and ``sc2_phase`` on the same inputs, kept
+  in tests/fixtures/sumcheck_phases_jax.json by
+  scripts/make_sumcheck_fixture.py (the JAX programs take about half a
+  minute a size to compile on a CPU);
 - a 2^5 prove through both routes (the device-resident phases and the host
   loop) gives the golden proof's bytes. The commitment's messages are taken
   from the golden proof, so no MSM runs here; the whole prove through the
@@ -15,6 +22,7 @@ tests/test_torch_csrc_host.py here and by chip_smoke.py on the card):
 """
 
 import hashlib
+import json
 import pathlib
 import random
 import types
@@ -36,6 +44,7 @@ from spartan_tpu_torch.utils.transcript import Blake2sRng
 torch.set_num_threads(1)
 
 GOLDEN = pathlib.Path(__file__).parent / "fixtures" / "proof_2e5_seed3.bin"
+PHASES = pathlib.Path(__file__).parent / "fixtures" / "sumcheck_phases_jax.json"
 
 
 def _random_words(n: int, seed: int) -> np.ndarray:
@@ -161,3 +170,37 @@ def test_device_route_proof_equals_host_loop_and_golden(golden_route, monkeypatc
     host = golden_route(monkeypatch, "host loop").serialize()
     assert "Prove Sumcheck 1" in timers.SPANS
     assert device == host == GOLDEN.read_bytes()
+
+
+def _phase_inputs(log_n: int):
+    """Tables Az, Bz, Cz, W, Z, tor and a chain state, drawn as
+    scripts/make_sumcheck_fixture.py draws them."""
+    rng = random.Random(1000 + log_n)
+    n = 1 << log_n
+    tabs = [[rng.randrange(hf.R) for _ in range(n)] for _ in range(5)]
+    tor = [rng.randrange(hf.R) for _ in range(log_n)]
+    state = bytes(rng.randrange(256) for _ in range(32))
+    return tabs, tor, state
+
+
+@pytest.mark.parametrize("log_n", range(3, 11))
+def test_plain_phases_match_jax_fused(log_n):
+    """Both phases through protocol.fused on CPU tensors (the plain versions
+    of the round launches, from log_n = 9, and of the one-block tail) against
+    spartan_tpu's fused.sc1_phase and sc2_phase: every message, challenge,
+    round 4's va, vb, vc and r_a, r_b, r_c, and the chain states."""
+    from spartan_tpu_torch.ops import mle as tm
+    from spartan_tpu_torch.protocol import fused
+
+    want = json.loads(PHASES.read_text())[str(log_n)]
+    ints = lambda xs: [int(x, 16) for x in xs]  # noqa: E731
+    tabs, tor, state = _phase_inputs(log_n)
+    mont = [tf.encode_mont(tf.FR, t) for t in tabs]
+    r1 = fused.sc1_phase(*mont[:3], tm.eq_suffix_tables(tor, "cpu"), tor, state)
+    assert r1.evals == [ints(e) for e in want["sc1"]["evals"]]
+    assert (r1.rs, r1.vabc, r1.rabc) == (ints(want["sc1"]["rs"]), ints(want["sc1"]["vabc"]),
+                                         ints(want["sc1"]["rabc"]))
+    assert r1.state.hex() == want["sc1"]["state"]
+    r2 = fused.sc2_phase(mont[3], mont[4], state)
+    assert r2.evals == [ints(e) for e in want["sc2"]["evals"]] and r2.rs == ints(want["sc2"]["rs"])
+    assert r2.state.hex() == want["sc2"]["state"]

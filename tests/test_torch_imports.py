@@ -139,6 +139,5 @@ def test_phase_kernels_match_plain_on_card():
         rows = chip_smoke.phase_fs_kernels(torch.device("cuda", 0), chip_smoke.Card())
     finally:
         chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = old
-    assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH[:2]) + ["fs_sc1_emit", "fs_sc2_emit",
-                                                                          "fs_sc1_final"]
-    assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch"}
+    assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH)
+    assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch", "sc1_round_stamped"}

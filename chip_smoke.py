@@ -30,8 +30,9 @@ exits non-zero:
    one-block tails at the prove's one shape, each bit-exact against its
    plain version (every output: tables, evaluations, challenges, pre, the
    coefficients, the chain state) and timed by device time (CUDA graphs)
-   beside its bound and PR 6's time for the same rounds; K6's stage split
-   in cycles (sc1_round_stamped) at one pair and at 2^15 pairs;
+   beside its bound (the two-launch design's times for the same rounds,
+   copied from its record, on lines of their own marked as copied); K6's
+   stage split in cycles (sc1_round_stamped) at one pair and at 2^15 pairs;
    nvidia-smi's clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
@@ -601,9 +602,11 @@ B2S_OPS = 968
 B2S_WORDS = (0, 1, 10, 16, 17, 32, 162)  # block edges, round 4's 32 words, a 2^16 sumcheck-1 round's 162
 B2S_COUNT = 4096  # messages a width in the check against hashlib
 B2S_TIMED = 1 << 16  # messages of 162 words in the timed launch
-# PR 6's device ms (CUDA graph) of a round at the 2^16 prove's widths: its round kernel by pairs and its
-# transcript kernel by partials (PERF.md, PR 6: chip_smoke.py at 6f01809 on an NVIDIA H100 80GB HBM3, 700 W)
-PR6_ROUND_MS = {
+# The two-launch design's device ms (CUDA graph) of a round at the 2^16 prove's widths: its round
+# kernel by pairs and its transcript kernel by partials, copied from the record of chip_smoke.py at
+# commit 6f01809 on an NVIDIA H100 80GB HBM3, 700 W. Not measured here: printed only on lines marked
+# as copied, never in the kernels line.
+TWO_LAUNCH_ROUND_MS = {
     "sc1_round": {1 << 16: 0.03458, 1 << 15: 0.01214, 1 << 14: 0.01563, 1 << 13: 0.01500, 1 << 12: 0.01486, 1 << 11: 0.01436,
                   1 << 10: 0.01438, 512: 0.01435, 256: 0.01435, 128: 0.01366, 64: 0.01291, 32: 0.01286,
                   16: 0.01256, 8: 0.01238, 4: 0.01223, 2: 0.01234, 1: 0.01237},
@@ -611,20 +614,28 @@ PR6_ROUND_MS = {
                     1 << 10: 0.00976, 512: 0.00990, 256: 0.00982, 128: 0.00921, 64: 0.00891, 32: 0.00886,
                     16: 0.00871, 8: 0.00868, 4: 0.00867, 2: 0.00865, 1: 0.00863},
 }
-PR6_EMIT_MS = {
+TWO_LAUNCH_STEP_MS = {
     "sc1_round": {256: 0.02130, 128: 0.02035, 64: 0.01987, 32: 0.01955, 16: 0.01956, 8: 0.01956, 4: 0.01949,
                   2: 0.01951, 1: 0.01954},
     "prod2_round": {256: 0.00883, 128: 0.00791, 64: 0.00738, 32: 0.00710, 16: 0.00708, 8: 0.00688, 4: 0.00693,
                     2: 0.00685, 1: 0.00705},
 }
-PR6_FINAL_MS = 0.00981  # its round-4 kernel (fs_sc1_final)
+TWO_LAUNCH_FINAL_MS = 0.00981  # its round-4 kernel (fs_sc1_final)
 
 
-def _pr6_ms(name: str, pairs: int) -> float:
-    """PR 6's device ms of a round of `pairs` pairs: its round kernel and its
-    transcript kernel on that round's partials (128 pairs a block, at most
-    256 blocks)."""
-    return PR6_ROUND_MS[name][pairs] + PR6_EMIT_MS[name][max(1, min(256, -(-pairs // 128)))]
+def _two_launch_ms(name: str, pairs: int) -> float | None:
+    """The two-launch design's copied device ms for the rounds that launch
+    `name` at `pairs` pairs runs (a round: its round kernel and its
+    transcript kernel on that round's partials, 128 pairs a block, at most
+    256 blocks; a tail: the rounds it runs, and round 4's kernel)."""
+    def one(kernel: str, p: int) -> float:
+        return TWO_LAUNCH_ROUND_MS[kernel][p] + TWO_LAUNCH_STEP_MS[kernel][max(1, min(256, -(-p // 128)))]
+
+    if name.endswith("round"):
+        return one(name, pairs) if pairs in TWO_LAUNCH_ROUND_MS[name] else None
+    kernel = "sc1_round" if name.startswith("sc1") else "prod2_round"
+    return (sum(one(kernel, pairs >> k) for k in range(pairs.bit_length()))
+            + (TWO_LAUNCH_FINAL_MS if name.startswith("sc1") else 0.0))
 
 
 def _phase_call(name: str, tensors, ints):
@@ -806,8 +817,9 @@ def _phase_widths(name: str):
 def _phase_row(name: str, card: Card, rng, dev) -> dict:
     """A round kernel (with its transcript step) or a tail against its plain
     version at every width the 2^16 prove launches it at, every output
-    bit-exact, and its device time (CUDA graph) beside the bound and PR 6's
-    time for the same rounds; the row's times are those at the first width."""
+    bit-exact, and its device time (CUDA graph) beside the bound (and, on a
+    line marked as copied, the two-launch design's recorded time for the
+    same rounds); the row's times are those at the first width."""
     from spartan_tpu_torch import kernels
 
     row, widths = None, []
@@ -833,14 +845,12 @@ def _phase_row(name: str, card: Card, rng, dev) -> dict:
         w = {"pairs": pairs, "fold": fold, "device_ms": _graph_ms_of(call)}
         products, int_ops, nbytes = _phase_cost(name, pairs, fold, compressions)
         w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes, int_ops)
-        if name.endswith("round"):
-            w["pr6_ms"] = _pr6_ms(name, pairs) if pairs in PR6_ROUND_MS[name] else None
-        else:
-            w["pr6_ms"] = sum(_pr6_ms(name.replace("_tail", "_round").replace("sc2", "prod2"), pairs >> k)
-                              for k in range(n_rounds)) + (PR6_FINAL_MS if sc1 else 0.0)
-        pr6 = f"{w['pr6_ms']:.5f}" if w["pr6_ms"] is not None else "-"
         print(f"{name} pairs={pairs} fold={int(fold)} bit-exact: device {w['device_ms']:.5f} ms  "
-              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})  PR 6 {pr6} ms", flush=True)
+              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
+        copied = _two_launch_ms(name, pairs)
+        if copied is not None:
+            print(f"  copied, not measured in this run: the two-launch design (6f01809) for the same "
+                  f"rounds {copied:.5f} ms", flush=True)
         widths.append(w)
         if row is None:
             src, rep, _nt, _ni = kernels.PHASE_KERNELS[name]
@@ -851,10 +861,11 @@ def _phase_row(name: str, card: Card, rng, dev) -> dict:
                    "bound_by": w["bound_by"], "library_ms": None, "device_ms": w["device_ms"]}
     row["widths"] = widths
     prove = widths[1:] if name.endswith("round") else widths
-    pr6 = sum(x["pr6_ms"] for x in prove)
     print(f"{name} over the 2^16 prove's {len(prove)} launches by device time: "
-          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms, "
-          f"PR 6 for the same rounds {pr6:.4f} ms", flush=True)
+          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms",
+          flush=True)
+    print(f"  copied, not measured in this run: the two-launch design (6f01809) for the same rounds "
+          f"{sum(_two_launch_ms(name, x['pairs']) for x in prove):.4f} ms", flush=True)
     return row
 
 

@@ -1,16 +1,20 @@
-"""The cycle split of PR 6's sumcheck kernels on the card, by stage.
+"""The cycle split of the two-launch sumcheck kernels on the card, by stage.
+
+A one-off measurement of the design that the one-launch round replaced (a
+round kernel and a transcript kernel a round, commit 6f01809); nothing else
+uses it.
 
     git archive 6f01809 spartan_tpu_torch/csrc | tar -x -C _archive_parent
-    python3 scripts/pr6_stages/run.py _archive_parent/spartan_tpu_torch/csrc
+    python3 scripts/two_launch_stages/run.py _archive_parent/spartan_tpu_torch/csrc
 
-Builds stages.cu (beside this file) with nvcc against the given csrc/ of PR
-6 and prints, from clock64() stamps of thread 0 of block 0: K6's loads,
+Builds stages.cu (beside this file) with nvcc against the given csrc/ of that
+commit and prints, from clock64() stamps of thread 0 of block 0: K6's loads,
 fold, evaluation products, warp sums, block sum and partial store at one
 pair (folding), 128 pairs and 2^15 pairs (no fold); K5 fs_sc1_emit's sum of
 partials, evaluations, each Blake2s compression, the sampler and the new
 pre at 1 and 256 partials (19 evaluations, a 2^16 round's); the device time
 of the stamped K6 (a CUDA graph of 20); and the cycles a compression takes
-in a chain of 1,000 on one thread, with PR 6's rotates and with PRMT and
+in a chain of 1,000 on one thread, with that commit's rotates and with PRMT and
 funnel shifts. Needs one card and nvcc; writes the SASS instruction counts
 of each kernel.
 """
@@ -83,7 +87,7 @@ def main() -> int:
             res.append(np.diff(st.cpu().numpy()[:7]))
         d = np.median(np.array(res[1:]), axis=0)
         names = ["loads", "fold", "evaluation products", "warp sums", "block sum", "partial store"]
-        print(f"K6 (PR 6) pairs={pairs} fold={int(fold)} blocks={blocks}: cycles "
+        print(f"K6 (two-launch) pairs={pairs} fold={int(fold)} blocks={blocks}: cycles "
               + ", ".join(f"{n} {int(x)}" for n, x in zip(names, d)) + f"; total {int(d.sum())}")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -98,7 +102,7 @@ def main() -> int:
             graph.replay()
         e1.record()
         torch.cuda.synchronize()
-        print(f"K6 (PR 6, stamped) pairs={pairs}: device {e0.elapsed_time(e1) / 100 * 1000:.2f} us a launch")
+        print(f"K6 (two-launch, stamped) pairs={pairs}: device {e0.elapsed_time(e1) / 100 * 1000:.2f} us a launch")
 
     def k5(nblocks, d=19):
         part = fr(3 * nblocks).t().reshape(3, nblocks, 8).contiguous()
@@ -116,7 +120,7 @@ def main() -> int:
             a = st.cpu().numpy()
             res.append(np.diff(a[: int(a[30])]))
         c = np.median(np.array(res[1:]), axis=0)
-        print(f"K5 (PR 6) fs_sc1_emit partials={nblocks} D={d}: cycles sum of partials {int(c[0])}, evaluations "
+        print(f"K5 (two-launch) fs_sc1_emit partials={nblocks} D={d}: cycles sum of partials {int(c[0])}, evaluations "
               f"{int(c[1])}, compressions {[int(x) for x in c[2:-2]]}, sampler {int(c[-2])}, to_mont and pre "
               f"{int(c[-1])}; total {int(c.sum())}")
 
@@ -127,7 +131,7 @@ def main() -> int:
     msg = torch.from_numpy(rng.integers(0, 1 << 32, size=16, dtype=np.uint64).astype(np.uint32)
                            .view(np.int32)).to(dev)
     digests = []
-    for v, label in ((0, "PR 6's rotates"), (1, "PRMT and funnel-shift rotates")):
+    for v, label in ((0, "shift-and-or rotates"), (1, "PRMT and funnel-shift rotates")):
         out = torch.zeros(8, dtype=torch.int32, device=dev)
         for _ in range(2):
             lib.pr_chain(v, vp(msg.data_ptr()), vp(out.data_ptr()), i64(1000), vp(st.data_ptr()), vp(stream))

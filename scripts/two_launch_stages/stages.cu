@@ -1,8 +1,8 @@
-// PR 6's K6 (sc1_round_kernel) and K5 (fs_sc1_emit_kernel) bodies with
-// clock64() stamps at their stage boundaries, and a chain of Blake2s
-// compressions on one thread in two forms of the rotates (PR 6's shifts and
-// PRMT/funnel shifts). Built by run.py against PR 6's csrc/ (commit
-// 6f01809): the split that the redesign of PR 7 started from.
+// The two-launch design's K6 (sc1_round_kernel) and K5 (fs_sc1_emit_kernel)
+// bodies with clock64() stamps at their stage boundaries, and a chain of
+// Blake2s compressions on one thread in two forms of the rotates (shifts and
+// ors, and PRMT/funnel shifts). Built by run.py against that design's csrc/
+// (commit 6f01809): the split that the one-launch round started from.
 #include "fs.cuh"
 #include "sumcheck.cuh"
 

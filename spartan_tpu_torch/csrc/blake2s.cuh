@@ -11,7 +11,7 @@
 // instructions (10 rounds, a column and a diagonal step each, 12 a G mix:
 // two three-input adds, two adds, four xors, four rotates) and about 1,000
 // instructions in all, which one thread issues; on the H100 a compression
-// takes about 1,660 cycles, 0.84 us (PERF.md, PR 7). The rounds are written
+// takes about 1,660 cycles, 0.84 us (PERF.md). The rounds are written
 // out with the message schedule as literal indices, so the 16 message words
 // stay in registers (a table of the schedule would index them at run time,
 // through local memory); the four G mixes of a column or diagonal step are
@@ -56,7 +56,7 @@ struct Words16 {
 // One compression of the message block m into h: t is the byte count so far
 // (messages below 4 GiB), last the final-block flag. One function, not
 // inlined at its call sites (the absorb's, the sampler's): a round runs each
-// once or a few times, and a copy is about 16 KB of code (PERF.md, PR 7).
+// once or a few times, and a copy is about 16 KB of code (PERF.md).
 __device__ __noinline__ Words8 compress_fn(Words8 hh, Words16 mm, uint32_t t, bool last) {
   const uint32_t* m = mm.v;
   uint32_t v0 = hh.v[0], v1 = hh.v[1], v2 = hh.v[2], v3 = hh.v[3], v4 = hh.v[4], v5 = hh.v[5], v6 = hh.v[6];

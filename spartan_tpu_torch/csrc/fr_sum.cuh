@@ -23,7 +23,7 @@ namespace sck {
 // The product is one function, not inlined at each of the sumcheck kernels'
 // few dozen call sites: a round runs each site once or a few times, and
 // inlined copies (about 5 KB of code each) cost more in instruction-cache
-// misses than the call (PERF.md, PR 7).
+// misses than the call (PERF.md).
 __device__ __noinline__ Fr mul_fn(Fr a, Fr b) { return fe_mul_cc<FrParams>(a, b); }
 __device__ __forceinline__ Fr mul(const Fr& a, const Fr& b) { return mul_fn(a, b); }
 __device__ __forceinline__ Fr add(const Fr& a, const Fr& b) { return fe_add<FrParams>(a, b); }

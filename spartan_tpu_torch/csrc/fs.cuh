@@ -13,7 +13,7 @@
 // become the wire's evaluations; one thread absorbs the message (state ||
 // ser_fr_vec(evals): a u64 length prefix and 32 bytes an element) and
 // samples the challenge from block 0 of the new stream, rejecting values
-// >= r. What bounds it on the H100 (PERF.md, PR 7): that thread's chain, 11
+// >= r. What bounds it on the H100 (PERF.md): that thread's chain, 11
 // Blake2s compressions for a sumcheck-1 round at 2^16 (648 bytes of
 // message), about 0.9 us each, and the sampler's one or more; and Fr
 // products, which cost one thread 1,000-1,500 cycles each. So a sumcheck-1

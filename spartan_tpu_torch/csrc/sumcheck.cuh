@@ -10,11 +10,12 @@
 // (pallas_field.py:254/258/262) and a reduction over the table for every
 // evaluation.
 //
-// What bounds a round on the H100 (PERF.md, PR 7, from the cycle stamps of
+// What bounds a round on the H100 (PERF.md, from the cycle stamps of
 // the timing entry point): below a few thousand pairs, latency. One thread's
-// Fr product (fp_cc.cuh) is about 1,000-1,500 cycles, and PR 6's kernel ran
-// twelve of them a pair on one thread: at one pair the fold took 8,900
-// cycles and the three evaluations 7,100 of 22,600; the sums mod r 4,700.
+// Fr product (fp_cc.cuh) is about 1,000-1,500 cycles, and the two-launch
+// design's kernel ran twelve of them a pair on one thread: at one pair the
+// fold took 8,900 cycles and the three evaluations 7,100 of 22,600; the sums
+// mod r 4,700.
 // So here a pair is a group of four lanes. Lane k < NT folds table k
 // (entries 4b..4b+3 -> t[2b] + r (t[2b+1] - t[2b]), two products) and
 // writes the folded pair at 2b, 2b+1; the group exchanges the pairs by

@@ -33,7 +33,15 @@ exits non-zero:
    beside its bound (the two-launch design's times for the same rounds,
    copied from its record, on lines of their own marked as copied); K6's
    stage split in cycles (sc1_round_stamped) at one pair and at 2^15 pairs;
-   nvidia-smi's clocks.sm sampled;
+   then K1 and K2 where the prover runs them whole (FUSED_KERNELS), each
+   bit-exact against its plain version and timed by device time beside its
+   bound: g1_normalize and g2_normalize at 1, 16, 4,096 and 2^16 lanes with
+   infinity lanes, by width and on each path (one warp, one thread a
+   point), beside the composition of fp_mul, fp_add, fp_sub and fp_inv
+   launches they replaced; eq_tables at nv = 16 (the suffix set and
+   eq_table); the quotient ladder at nv = 16 (five quot_level launches and
+   the tail) and nv = 5 (the tail alone); fp_mul beside field.cuh's product
+   (fp_mul_sum64), as fr_mul; nvidia-smi's clocks.sm sampled;
 3. the 2^5 golden proof (circuit seed 3, key seed 7), with setup and index
    called without a device (they default to the card), must equal
    ``tests/fixtures/proof_2e5_seed3.bin``; then both sumcheck phases on the
@@ -45,8 +53,13 @@ exits non-zero:
    and reject a proof with one opening byte changed and a wrong public
    input; every kernel entry point of the path must have launched during
    the run (K6 and K7 once a round up to the tail, each tail once, at
-   most 20 launches in the two phases, printed by entry point); fr_mul's
-   device time summed over the prove's shapes, from phase 2; then the same
+   most 20 launches in the two phases, printed by entry point), but those
+   whose prove work the fused kernels took over (fp_mul, fp_add, fp_inv:
+   none a prove; fr_sub: at most 2); K1's and K2's launches a prove by
+   entry point, at most 40 together; the proof's SHA-256 must equal
+   ``tests/fixtures/proof_2e16_seed0.sha256``; fr_mul's
+   device time summed over the prove's shapes, from phase 2, and fp_sub's
+   at each width the prove launched it at, beside the bound; then the same
    prove through the host loop (SPARTAN_DEVICE_FS=0) on the same keys must
    give the same bytes, with both routes' spans and launches printed;
 5. for each route, warm proves, then one under torch.profiler (device time
@@ -55,11 +68,14 @@ exits non-zero:
    device route's two phases must hold exactly one copy, at its end.
 
 The line before the last is a JSON object with one entry per kernel entry
-point; the last line is the contract object with the device.
+point (those whose work moved into the fused kernels, launched in no step
+of phase 4's run, carry ``"main_path": false``); the last line is the
+contract object with the device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -75,6 +91,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "proof_2e5_seed3.bin")
+# SHA-256 of phase 4's 2^16 proof as the port made it before the fused kernels (scripts/proof_sha.py)
+PROOF_SHA = os.path.join(REPO, "tests", "fixtures", "proof_2e16_seed0.sha256")
 # spartan_tpu's fused sumcheck phases at log_n = 3..10 (scripts/make_sumcheck_fixture.py)
 PHASES_FIXTURE = os.path.join(REPO, "tests", "fixtures", "sumcheck_phases_jax.json")
 TIMED_LANES = 1 << 16  # the width of the 2^16 tables; see PERF.md
@@ -253,7 +271,8 @@ G2_MADD_WIDTHS = (8, 4096, 1 << 16, 1_029_085)
 G1_MADD_WIDTHS = (2048, 1 << 16, 1_043_405)
 TEAMS = {"g1": (2, 4, 8), "g2": (4, 8, 16)}  # team sizes each group's kernels take
 TEAMS_OF = {"g1_madd": (2, 4)}  # a kernel's own, where they differ from its group's
-# the field kernels' most launched shape in the 2^16 prove (phase 4 prints them)
+# the field kernels' most launched shape in the 2^16 prove (phase 4 prints them); for fp_mul, fp_add and
+# fr_sub, whose prove work moved into the fused kernels below, the shape they were launched at most before
 FIELD_SHAPES = {"fr_mul": 32_768, "fr_add": 1 << 16, "fr_sub": 1, "fp_mul": 48, "fp_add": 16,
                 "fp_sub": 32}
 # every width the 2^16 prove launches fr_mul at (phase 4 prints them)
@@ -440,7 +459,8 @@ def phase_kernels(dev, card: Card, seed: int = 1234) -> list:
 def _field_device(card: Card, row: dict, a: torch.Tensor, b: torch.Tensor) -> None:
     """A field kernel's device time at the row's 2^16 lanes and at the
     prove's most launched shape (the first lanes of a and b), beside the
-    bound there; fr_mul's also beside its version before the carry flag."""
+    bound there; fr_mul's and fp_mul's also beside their version before the
+    carry flag (field.cuh's product, the yardsticks *_sum64)."""
     name = row["name"]
     lanes = min(FIELD_SHAPES[name], a.shape[1])
     a1, b1 = a[:, :lanes].contiguous(), b[:, :lanes].contiguous()
@@ -450,9 +470,9 @@ def _field_device(card: Card, row: dict, a: torch.Tensor, b: torch.Tensor) -> No
     line = (f"field {name:7s} device ms (CUDA graph of 20): lanes={a.shape[1]} {row['device_ms']:.5f} "
             f"(bound {row['bound_ms']:.5f}, direct calls {row['ms']:.5f}); lanes={lanes} "
             f"{row['shape']['device_ms']:.5f} (bound {row['shape']['bound_ms']:.2e})")
-    if name == "fr_mul":
-        row["sum64_device_ms"] = graph_ms("fr_mul_sum64", torch.empty_like(a), a, b)
-        row["shape"]["sum64_device_ms"] = graph_ms("fr_mul_sum64", torch.empty_like(a1), a1, b1)
+    if name in ("fr_mul", "fp_mul"):
+        row["sum64_device_ms"] = graph_ms(f"{name}_sum64", torch.empty_like(a), a, b)
+        row["shape"]["sum64_device_ms"] = graph_ms(f"{name}_sum64", torch.empty_like(a1), a1, b1)
         line += (f"; before the carry flag {row['sum64_device_ms']:.5f} and "
                  f"{row['shape']['sum64_device_ms']:.5f}")
     print(line, flush=True)
@@ -921,6 +941,211 @@ def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: K1 and K2 run whole where the prover calls them (FUSED_KERNELS)
+# ---------------------------------------------------------------------------
+
+# normalize's widths: the prove's (1 G1 point, 16 G2 points), and setup's from 4,096 (the thread path)
+NORMALIZE_LANES = (1, 16, 4096, 1 << 16)
+NORMALIZE_FIRST = {"g1": 1, "g2": 16}  # the width of the row's own numbers: the prove's
+# Fp products a finite point: the Fermat chain, then G1 z^-2, z^-3, x, y; G2 the norm (2), z^-1 (2) and
+# four Fp2 products (3 each)
+NORMALIZE_PRODUCTS = {"g1": FP_INV_PRODUCTS + 4, "g2": FP_INV_PRODUCTS + 16}
+EQ_NV = 16  # the prove's eq tables (rounds 3 and 5) and setup's suffix set
+LADDER_NVS = (16, 5)  # an opening of the 2^16 prove (level launches and the tail) and a tail alone
+FUSED_PATH = ("g1_normalize", "g2_normalize", "eq_tables", "quot_level", "quot_tail")
+# K1's and K2's entry points, the fused ones included, and the most launches of them a 2^16 prove may take
+K12 = {"K1": ("fr_mul", "fr_add", "fr_sub", "eq_tables", "quot_level", "quot_tail"),
+       "K2": ("fp_mul", "fp_add", "fp_sub", "fp_inv", "g1_normalize", "g2_normalize")}
+K12_MAX = 40
+# entry points whose prove work the fused kernels took over, and the most launches a prove may still take
+MOVED = {"fp_mul": 0, "fp_add": 0, "fp_inv": 0, "fr_sub": 2}
+
+
+def _fp_kernel_ops():
+    """The Fp operations normalize composed before its kernel: the wrappers
+    of fp_add, fp_sub, fp_mul and fp_inv (each call a launch, counted)."""
+    from functools import partial
+
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops import fp2
+    from spartan_tpu_torch.ops.field import FP
+
+    return fp2.FpOps(partial(fo.add, FP), partial(fo.sub, FP), partial(fo.mont_mul, FP),
+                     partial(fo.fermat_inv, FP))
+
+
+def _fused_row(name: str, ms: float, plain_ms: float, bound, widths: list) -> dict:
+    from spartan_tpu_torch import kernels
+
+    src, rep, _nt, _ni = kernels.FUSED_KERNELS[name]
+    return {"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "device_ms": widths[0]["device_ms"], "widths": widths}
+
+
+def _normalize_points(group: str, n: int, rng, dev):
+    """n Jacobian points of ``group`` on the card and the host twins of their
+    first 8 lanes. One lane is a finite point; from 8 lanes lane 0 is
+    infinity (z = 0), and from 4,096 lanes so is every 97th lane, its x and
+    y left non-zero."""
+    p, _q, p_host, _qh = _random_points(group, max(n, 8), rng, dev)
+    if n == 1:
+        return p.take(slice(4, 5)), p_host[4:5]
+    p = p.take(slice(0, n))
+    data = p.data.contiguous()
+    if n >= 4096:
+        data[2 if group == "g1" else 4:, :, ::97] = 0
+    return type(p)(data, group), [None if i % 97 == 0 and n >= 4096 else h for i, h in enumerate(p_host)]
+
+
+def _normalize_row(group: str, card: Card, rng, dev) -> dict:
+    """g1_normalize or g2_normalize at NORMALIZE_LANES lanes: bit-exact
+    against normalize_plain (the first lanes also against the host), the
+    entry point and both its paths (one warp, one thread a point) by device
+    time beside the bound, and the composition of Fp launches it replaced
+    (host included)."""
+    from spartan_tpu_torch.ops import curve as cv
+
+    name = f"{group}_normalize"
+    dec = cv.g1_decode if group == "g1" else cv.g2_decode
+    widths = []
+    for n in NORMALIZE_LANES:
+        p, host = _normalize_points(group, n, rng, dev)
+        want = cv.normalize_plain(p).data
+        got = cv.normalize(p).data
+        check(torch.equal(got, want), f"{name} lanes={n}: kernel disagrees with its plain version")
+        check(dec(cv.PointBatch(got[..., :8], group)) == host[:8],
+              f"{name} lanes={n}: first lanes disagree with the host points")
+        src = p.data.contiguous()
+        finite = int((~cv.is_infinity(p)).sum())
+        w = {"lanes": n, "infinity": n - finite}
+        for label, path in (("device_ms", 0), ("warp_ms", 1), ("thread_ms", 2)):
+            out = torch.full_like(src, -1)
+            call = _phase_call(name, [src, out], [n, path])
+            call()
+            check(torch.equal(out, want), f"{name} lanes={n} path={path}: disagrees with the plain version")
+            w[label] = _graph_ms_of(call, 20 if n <= 4096 else 3)
+        old = cv.normalize_plain(p, _fp_kernel_ops())
+        check(torch.equal(old.data, want), f"{name} lanes={n}: the Fp launches' composition disagrees")
+        w["fp_launches_ms"] = cuda_ms(lambda: cv.normalize_plain(p, _fp_kernel_ops()), 3)
+        w["plain_ms"] = cuda_ms(lambda: cv.normalize_plain(p), 1)
+        # every coordinate read and written once, 48 bytes an Fp
+        w["bound_ms"], w["bound_by"] = card.bound(NORMALIZE_PRODUCTS[group] * FP_MUL * finite,
+                                                  2 * 48 * src.shape[0] * n)
+        print(f"{name} lanes={n} (infinity {w['infinity']}) bit-exact (entry, warp, thread, Fp launches): device ms "
+              f"entry {w['device_ms']:.4f}  warp {w['warp_ms']:.4f}  thread {w['thread_ms']:.4f}  the Fp launches "
+              f"it replaced {w['fp_launches_ms']:.4f} (host included)  plain {w['plain_ms']:.1f}  "
+              f"bound {w['bound_ms']:.2e} ({w['bound_by']})", flush=True)
+        widths.append(w)
+        if n == NORMALIZE_FIRST[group]:
+            first, ms = w, cuda_ms(_phase_call(name, [src, torch.empty_like(src)], [n, 0]), 20)
+    return _fused_row(name, ms, first["plain_ms"], (first["bound_ms"], first["bound_by"]),
+                      [first] + [x for x in widths if x is not first])
+
+
+def _eq_row(card: Card, rng, dev) -> dict:
+    """eq_tables at nv = EQ_NV: the suffix set (rounds 3, setup) and eq_table
+    alone (round 5), bit-exact against the plain loops, by device time
+    beside the bound (one Fr product an output lane, the least a table set
+    needs, and its bytes)."""
+    from spartan_tpu_torch.ops import mle
+
+    ts = _fr_rows(EQ_NV, rng, dev).contiguous()
+    widths = []
+    for tables, wrap, plain in ((EQ_NV + 1, mle.eq_suffix_tables_mont, mle.eq_suffix_tables_plain),
+                                (1, lambda t: [mle.eq_table(t)], lambda t: [mle.eq_table_plain(t)])):
+        got, want = wrap(ts), plain(ts)
+        check(len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"eq_tables nv={EQ_NV} tables={tables}: kernel disagrees with its plain version")
+        lanes = sum(x.shape[1] for x in want)
+        buf = torch.empty(8 * lanes, dtype=torch.int32, device=dev)
+        call = _phase_call("eq_tables", [ts, buf], [EQ_NV, tables])
+        w = {"nv": EQ_NV, "tables": tables, "lanes": lanes, "device_ms": _graph_ms_of(call),
+             "ms": cuda_ms(call, 20), "plain_ms": cuda_ms(lambda: plain(ts), 1)}
+        w["bound_ms"], w["bound_by"] = card.bound(FR_PRODUCT * lanes, 32 * (lanes + EQ_NV))
+        print(f"eq_tables nv={EQ_NV} tables={tables} ({lanes} lanes) bit-exact: device {w['device_ms']:.5f} ms  "
+              f"plain {w['plain_ms']:.1f} ms  bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
+        widths.append(w)
+    w = widths[0]
+    return _fused_row("eq_tables", w["ms"], w["plain_ms"], (w["bound_ms"], w["bound_by"]), widths)
+
+
+def _ladder_calls(poly: torch.Tensor, pt: torch.Tensor):
+    """The ladder's launches as direct calls on fixed buffers, as
+    scheme._quotients_and_eval makes them: [(name, pairs, call)], qcat, ev."""
+    from spartan_tpu_torch.commitment import scheme
+
+    nv, dev = pt.shape[1], poly.device
+    qcat = torch.full((8, (1 << nv) - 1), -1, dtype=torch.int32, device=dev)
+    ev = torch.full((8, 1), -1, dtype=torch.int32, device=dev)
+    level0 = max(0, nv - scheme.QUOT_TAIL_PAIRS.bit_length())
+    calls, r = [], poly
+    for level in range(level0):
+        out = torch.empty((8, 1 << (nv - 1 - level)), dtype=torch.int32, device=dev)
+        calls.append(("quot_level", out.shape[1], _phase_call("quot_level", [r, pt, qcat, out], [nv, level])))
+        r = out
+    calls.append(("quot_tail", r.shape[1] // 2, _phase_call("quot_tail", [r, pt, qcat, ev], [nv, level0])))
+    return calls, qcat, ev
+
+
+def _ladder_cost(name: str, pairs0: int):
+    """(Fr products, bytes) of a ladder launch from `pairs0` pairs: a pair's
+    from_mont(q) and q p_i; a level reads its two elements and writes q and
+    r' once; the tail reads its first level's elements, writes every level's
+    q and the evaluation (from_mont of the last r), and keeps r on chip."""
+    if name == "quot_level":
+        return 2 * pairs0, 128 * pairs0 + 32
+    pairs = [pairs0 >> k for k in range(pairs0.bit_length())]
+    return 2 * sum(pairs) + 1, 64 * pairs0 + 32 * sum(pairs) + 32 * (len(pairs) + 1)
+
+
+def _ladder_rows(card: Card, rng, dev) -> list:
+    """The quotient ladder at LADDER_NVS: the wrapper and the direct calls
+    bit-exact against the plain loop (every quotient and the evaluation),
+    each launch by device time beside its bound; the quot_level row's
+    numbers are at the 2^16 opening's first level, quot_tail's at its tail."""
+    from spartan_tpu_torch.commitment import scheme
+
+    per = {"quot_level": [], "quot_tail": []}
+    for nv in LADDER_NVS:
+        poly, pt = _fr_rows(1 << nv, rng, dev), _fr_rows(nv, rng, dev).contiguous()
+        want_q, want_ev = scheme._quotients_and_eval_plain(poly, pt)
+        got_q, got_ev = scheme._quotients_and_eval(poly, pt)
+        check(torch.equal(got_q, want_q) and torch.equal(got_ev, want_ev),
+              f"quotient ladder nv={nv}: kernels disagree with the plain loop")
+        calls, qcat, ev = _ladder_calls(poly, pt)
+        for _name, _pairs, call in calls:
+            call()
+        check(torch.equal(qcat, want_q) and torch.equal(ev, want_ev),
+              f"quotient ladder nv={nv}: the direct calls disagree with the plain loop")
+        plain_ms = cuda_ms(lambda: scheme._quotients_and_eval_plain(poly, pt), 1)
+        whole = _graph_ms_of(lambda: [c() for _n, _p, c in calls])
+        for name, pairs, call in calls:
+            products, nbytes = _ladder_cost(name, pairs)
+            w = {"nv": nv, "pairs": pairs, "device_ms": _graph_ms_of(call), "ms": cuda_ms(call, 20)}
+            w["bound_ms"], w["bound_by"] = card.bound(FR_PRODUCT * products, nbytes)
+            print(f"{name} nv={nv} pairs={pairs} bit-exact: device {w['device_ms']:.5f} ms  "
+                  f"bound {w['bound_ms']:.2e} ms ({w['bound_by']})", flush=True)
+            per[name].append(w | {"plain_ms": plain_ms})
+        print(f"quotient ladder nv={nv}: {len(calls)} launches, device {whole:.5f} ms together; plain loop "
+              f"{plain_ms:.1f} ms", flush=True)
+    rows = []
+    for name, widths in per.items():
+        w = widths[0]
+        rows.append(_fused_row(name, w["ms"], w["plain_ms"], (w["bound_ms"], w["bound_by"]), widths))
+    return rows
+
+
+def phase_fused_kernels(dev, card: Card, seed: int = 2468) -> list:
+    """The fused K1 and K2 entry points (FUSED_KERNELS), each bit-exact
+    against its plain version at the prove's widths and wider, and timed."""
+    rng = np.random.default_rng(seed)
+    rows = [_normalize_row(group, card, rng, dev) for group in ("g1", "g2")]
+    rows.append(_eq_row(card, rng, dev))
+    return rows + _ladder_rows(card, rng, dev)
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the port's main path
 # ---------------------------------------------------------------------------
 
@@ -1058,7 +1283,8 @@ def phase_full(dev, card: Card, log_n: int = 16):
               {k: dict(c) for k, c in kernels.LANES.items()})
     proof, prove_s = timed(lambda: MLArgumentForR1CS.prove(pk, v, w, pp))
     device_spans = dict(timers.SPANS)
-    prove_counts = {k: kernels.LAUNCHES[k] - before[0].get(k, 0) for k in (*kernels.KERNELS, *PHASE_PATH)}
+    path = (*kernels.KERNELS, *PHASE_PATH, *FUSED_PATH)
+    prove_counts = {k: kernels.LAUNCHES[k] - before[0].get(k, 0) for k in path}
     prove_doublings = {k: d - before[1].get(k, 0) for k, d in kernels.DOUBLINGS.items()}
     prove_widths = {}  # kernel -> its three most launched (lanes, k) in the prove
     for k, counts in kernels.LANES.items():
@@ -1066,9 +1292,14 @@ def phase_full(dev, card: Card, log_n: int = 16):
         top = sorted(((m, key) for key, m in diff.items() if m), reverse=True)[:3]
         prove_widths[k] = [[list(key), m] for m, key in top]
     ok, verify_s = timed(lambda: MLArgumentForR1CS.verify(pk.vk(), v, proof, vp))
-    launches = {k: kernels.LAUNCHES[k] for k in (*kernels.KERNELS, *PHASE_PATH)}
+    launches = {k: kernels.LAUNCHES[k] for k in path}
     check(ok is True, "verify rejected the honest 2^16 proof")
     data = proof.serialize()
+    with open(PROOF_SHA) as fh:
+        want_sha = fh.read().split()[0]
+    sha = hashlib.sha256(data).hexdigest()
+    check(sha == want_sha, f"the 2^16 proof's SHA-256 {sha} differs from {os.path.basename(PROOF_SHA)}")
+    print(f"full: the 2^16 proof's SHA-256 {sha} equals {os.path.basename(PROOF_SHA)}", flush=True)
     print(f"full: setup {setup_s:.3f} s  index {index_s:.3f} s  prove {prove_s:.3f} s  "
           f"verify {verify_s:.3f} s  proof {len(data)} bytes", flush=True)
     print("full: spans " + json.dumps({k: round(s, 4) for k, s in timers.SPANS.items()}), flush=True)
@@ -1077,7 +1308,7 @@ def phase_full(dev, card: Card, log_n: int = 16):
     print("full: prove [[lanes, (k)], launches], most launched first " + json.dumps(prove_widths),
           flush=True)
     shapes = {}  # every shape the prove launched them at, widest first
-    for k in ("g1_add", "g1_double", "fr_mul"):
+    for k in ("g1_add", "g1_double", "fr_mul", "fp_sub"):
         diff = {key: m - before[2].get(k, {}).get(key, 0) for key, m in kernels.LANES[k].items()}
         shapes[k] = sorted(([list(key), m] for key, m in diff.items() if m), reverse=True)
         print(f"full: prove {k} [[lanes, (k)], launches], all, widest first " + json.dumps(shapes[k]),
@@ -1092,7 +1323,15 @@ def phase_full(dev, card: Card, log_n: int = 16):
     print("full: prove, bound at the most launched shape [ms, by] " + json.dumps(bounds),
           flush=True)
     for k in prove_counts:
-        check(prove_counts[k] > 0, f"kernel {k} never launched during prove")
+        if k in MOVED:
+            check(prove_counts[k] <= MOVED[k], f"{k}: {prove_counts[k]} launches a prove, more than {MOVED[k]}")
+        else:
+            check(prove_counts[k] > 0, f"kernel {k} never launched during prove")
+    k12 = {f: {k: prove_counts[k] for k in K12[f]} for f in K12}
+    total = sum(sum(c.values()) for c in k12.values())
+    print(f"full: K1 and K2 launches a prove by entry point, the fused ones included: {total} "
+          + json.dumps(k12), flush=True)
+    check(total <= K12_MAX, f"K1 and K2 launched {total} times in the prove, more than {K12_MAX}")
     i0 = fused.tail_start(log_n)
     for k in PHASE_PATH:
         want = 1 if k.endswith("tail") else i0
@@ -1221,8 +1460,15 @@ def _entry_point(kernel: str):
     m = re.search(r"\b(sc1_round|prod2_round|sc1_tail|sc2_tail|blake2s_batch)_kernel", kernel)
     if m:
         return m.group(1)
-    if "fe_mul_cc_kernel<FrParams>" in kernel:
-        return "fr_mul"
+    m = re.search(r"normalize_(?:warp|thread)_kernel<(\d)>", kernel)
+    if m:
+        return "g1_normalize" if m.group(1) == "3" else "g2_normalize"
+    m = re.search(r"\b(eq_tables|quot_level|quot_tail)_kernel", kernel)
+    if m:
+        return m.group(1)
+    m = re.search(r"fe_mul_cc_kernel<(Fr|Fp)Params>", kernel)
+    if m:
+        return m.group(1).lower() + "_mul"
     m = re.search(r"fe_binary_kernel<(Fr|Fp)Params, (\d)>", kernel)
     if m:
         return m.group(1).lower() + "_" + ("mul", "add", "sub")[int(m.group(2))]
@@ -1241,6 +1487,32 @@ def _fr_mul_in_prove(rows: list, shapes: list) -> None:
           f"{sum(m for _s, m in shapes)} launches at timed widths: {total['device_ms']:.4f} ms, "
           f"before the carry flag {total['sum64_device_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms",
           flush=True)
+
+
+def _fp_sub_in_prove(card: Card, shapes: list, dev, seed: int = 97) -> None:
+    """fp_sub at every width the prove launched it at (ops/msm.py's _neg_y:
+    the y coordinates of an MSM's gathered bases), bit-exact against the
+    plain version and by device time beside the bound: whether it reaches
+    half of its bound is measured, not reckoned."""
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops.field import FP
+
+    rng = np.random.default_rng(seed)
+    total = {"device_ms": 0.0, "bound_ms": 0.0}
+    for (lanes,), m in shapes:
+        a, b = (_random_field(FP, lanes, rng, dev) for _ in range(2))
+        out = torch.empty_like(a)
+        direct("fp_sub", out, a, b)()
+        check(torch.equal(out, fo.sub_plain(FP, a, b)), f"fp_sub lanes={lanes}: disagrees with the plain version")
+        ms = graph_ms("fp_sub", out, a, b)
+        bound = card.bound(0, LANE_BYTES["fp_sub"] * lanes)[0]
+        total["device_ms"] += m * ms
+        total["bound_ms"] += m * bound
+        print(f"full: fp_sub in the prove, lanes={lanes} x {m}: device {ms:.5f} ms, bound {bound:.5f} ms (bytes), "
+              f"{100 * bound / ms:.0f} % of it", flush=True)
+        del a, b, out
+    print(f"full: fp_sub over the prove's {sum(m for _s, m in shapes)} launches: device {total['device_ms']:.4f} ms, "
+          f"bound {total['bound_ms']:.4f} ms", flush=True)
 
 
 def main() -> int:
@@ -1267,12 +1539,14 @@ def main() -> int:
     with ClockSampler() as clocks:
         rows = phase_kernels(dev, card)
         rows += phase_fs_kernels(dev, card)
+        rows += phase_fused_kernels(dev, card)
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
     phase_jax_phases(dev)
     launches, shapes, prove = phase_full(dev, card)
     _fr_mul_in_prove(rows, shapes["fr_mul"])
+    _fp_sub_in_prove(card, shapes["fp_sub"], dev)
     inside = phase_profile(prove, "device route")
     for label in SUMCHECK_SPANS[:2]:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one "
@@ -1280,7 +1554,10 @@ def main() -> int:
     phase_profile(host_loop(prove), "host loop", warm=3)
     for row in rows:
         row["launches"] = launches[row["name"]]
-        check(row["launches"] > 0, f"kernel {row['name']} never launched in the main path")
+        row["main_path"] = row["name"] not in MOVED or row["launches"] > 0
+        check(row["launches"] > 0 or not row["main_path"], f"kernel {row['name']} never launched in the main path")
+    print("main path: entry points whose work the fused kernels took over, launched none in its run: "
+          + json.dumps(sorted(r["name"] for r in rows if not r["main_path"])), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,8 @@ import time
 # (a checkout proves its sumchecks through one of the two routes: the host
 # loop's spans or the device-resident phases'; the other side's read nan)
 SPANS = ("commit MSM", "open G2 MSMs", "Prove Sumcheck 1", "Prove Sumcheck 2",
-         "Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)")
+         "Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)", "Prove 1: commit z", "open quotients + eval",
+         "Prove 3: sparse mat-vec + eq", "Prove 5: eval_on_x + combine")
 R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 HOST_STEPS = 200_000
 
@@ -118,7 +119,8 @@ def child(root: str) -> None:
 
 # a run's numbers that the paired summary compares, each the median over the run's warm proves
 PAIRED = ("warm prove", "commit MSM", "open G2 MSMs", "Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)",
-          "host work")
+          "Prove 1: commit z", "open quotients + eval", "Prove 3: sparse mat-vec + eq",
+          "Prove 5: eval_on_x + combine", "host work")
 
 
 def run_medians(r: dict) -> dict:

@@ -100,18 +100,49 @@ def commit(pp: PublicParameter, poly: torch.Tensor) -> Commitment:
     return Commitment(nv=nv, g_product=cv.g1_decode(res)[0])
 
 
-def _quotients_and_eval(poly: torch.Tensor, point_mont: torch.Tensor):
+def _quotients_and_eval_plain(poly: torch.Tensor, point_mont: torch.Tensor):
     """All quotient tables q_i[b] = r_i[2b+1] - r_i[2b] (canonical,
     concatenated largest first) and the evaluation (canonical (8, 1)); the
-    remainder folds as r_{i+1} = even + p_i q_i."""
+    remainder folds as r_{i+1} = even + p_i q_i. On the plain Fr versions."""
+    one = fo.encode_ints(FR, [1], poly.device)
     r = poly
     outs = []
     for i in range(point_mont.shape[1]):
         even, odd = r[:, 0::2], r[:, 1::2]
-        q = fo.sub(FR, odd, even)
-        outs.append(fo.from_mont(FR, q))
-        r = fo.add(FR, even, fo.mont_mul(FR, q, point_mont[:, i : i + 1]))
-    return torch.cat(outs, dim=1), fo.from_mont(FR, r)
+        q = fo.sub_plain(FR, odd, even)
+        outs.append(fo.mont_mul_plain(FR, *torch.broadcast_tensors(q, one)))
+        r = fo.add_plain(FR, even, fo.mont_mul_plain(FR, *torch.broadcast_tensors(q, point_mont[:, i : i + 1])))
+    return torch.cat(outs, dim=1), fo.mont_mul_plain(FR, r, one)
+
+
+QUOT_TAIL_PAIRS = 1024  # csrc/fr_tables.cuh kTailPairs: the tail's first level, at most
+
+
+def _quotients_and_eval(poly: torch.Tensor, point_mont: torch.Tensor):
+    """``_quotients_and_eval_plain``'s tables and evaluation
+    (``spartan_tpu/commitment/scheme.py:175``): on the card one launch of
+    K1's ``quot_level`` a level down to the first level of at most
+    QUOT_TAIL_PAIRS pairs, then one ``quot_tail`` for the rest and the
+    evaluation (``csrc/fr_tables.cuh``). A CPU table takes the plain loop."""
+    if poly.device.type == "cpu":
+        return _quotients_and_eval_plain(poly, point_mont)
+    nv = point_mont.shape[1]
+    dev = poly.device
+    pt = point_mont.contiguous()
+    qcat = torch.empty((FR.nlimb, (1 << nv) - 1), dtype=torch.int32, device=dev)
+    ev = torch.empty((FR.nlimb, 1), dtype=torch.int32, device=dev)
+    level0 = max(0, nv - QUOT_TAIL_PAIRS.bit_length())
+    r = poly.contiguous()
+    if level0:  # two remainders in turn: 2^(nv-1) lanes for even levels, 2^(nv-2) for odd
+        scratch = torch.empty(FR.nlimb * 3 << (nv - 2), dtype=torch.int32, device=dev)
+        for level in range(level0):
+            pairs = 1 << (nv - 1 - level)
+            base = 0 if level % 2 == 0 else FR.nlimb << (nv - 1)
+            out = scratch[base : base + FR.nlimb * pairs].view(FR.nlimb, pairs)
+            kernels.call("quot_level", [r, pt, qcat, out], [nv, level], (pairs,))
+            r = out
+    kernels.call("quot_tail", [r, pt, qcat, ev], [nv, level0], (r.shape[1] // 2,))
+    return qcat, ev
 
 
 def banded_g2_msms(bases_list, scalars_list, sizes) -> PointBatch:

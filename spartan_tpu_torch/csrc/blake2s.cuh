@@ -57,7 +57,7 @@ struct Words16 {
 // (messages below 4 GiB), last the final-block flag. One function, not
 // inlined at its call sites (the absorb's, the sampler's): a round runs each
 // once or a few times, and a copy is about 16 KB of code (PERF.md).
-__device__ __noinline__ Words8 compress_fn(Words8 hh, Words16 mm, uint32_t t, bool last) {
+static __device__ __noinline__ Words8 compress_fn(Words8 hh, Words16 mm, uint32_t t, bool last) {
   const uint32_t* m = mm.v;
   uint32_t v0 = hh.v[0], v1 = hh.v[1], v2 = hh.v[2], v3 = hh.v[3], v4 = hh.v[4], v5 = hh.v[5], v6 = hh.v[6];
   uint32_t v7 = hh.v[7], v8 = iv(0), v9 = iv(1), v10 = iv(2), v11 = iv(3);

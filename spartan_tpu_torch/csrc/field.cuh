@@ -16,10 +16,10 @@
 // conditional subtract at the end, and reads the modulus from constant
 // memory, which is uniform across a warp.
 //
-// This file's product runs fp_mul (fp_ops.cu) and the yardsticks (PR 1's
-// one-thread point kernels, fr_mul_sum64); fr_mul and the team point kernels
-// run fp_cc.cuh's product on the carry flag, one instruction a limb. The
-// adds and subtracts run the Fr and Fp field kernels.
+// This file's product runs the yardsticks (the one-thread point kernels,
+// fr_mul_sum64, fp_mul_sum64); fr_mul, fp_mul and the team point kernels run
+// fp_cc.cuh's product on the carry flag, one instruction a limb. The adds
+// and subtracts run the Fr and Fp field kernels and fr_tables.cuh's ladder.
 #pragma once
 
 #include <cstdint>

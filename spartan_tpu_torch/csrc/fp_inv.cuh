@@ -23,7 +23,10 @@
 // - inv_thread_kernel, a yardstick: one thread per lane, fp_cc.cuh's CIOS
 //   product, a chain of about 600 dependent carry-flag instructions a
 //   product; 0.65 ms a chain. It is the faster one from 4,096 lanes on,
-//   which no caller reaches.
+//   where normalize.cuh runs its chain (thread_inv).
+//
+// normalize.cuh runs both chains (warp_inv, thread_inv) inside its
+// Jacobian-to-affine kernels, one chain a point.
 //
 // Results are canonical, so both give the limbs of the plain chain
 // (field.pow_const over mont_mul_plain) whatever the addition chain.
@@ -49,14 +52,12 @@ __device__ __forceinline__ uint32_t digit(int w) {
   return (limb >> (4 * (w % 8))) & 15u;
 }
 
-__global__ void __launch_bounds__(128) inv_thread_kernel(const uint32_t* __restrict__ a,
-                                                         uint32_t* __restrict__ out, int64_t n) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+// a^(p-2) by one thread: the fixed-window chain over fp_cc.cuh's product.
+__device__ __forceinline__ Fp thread_inv(const Fp& a) {
   Fp tab[16];
 #pragma unroll
   for (int i = 0; i < 12; ++i) tab[0].v[i] = SPK_FP_ONE[i];
-  tab[1] = fe_load<FpParams>(a, n, lane);
+  tab[1] = a;
 #pragma unroll 1
   for (int k = 2; k < 16; ++k) tab[k] = fp_mul_cc(tab[k - 1], tab[1]);
   Fp acc = tab[digit(kWindows - 1)];
@@ -67,7 +68,14 @@ __global__ void __launch_bounds__(128) inv_thread_kernel(const uint32_t* __restr
     const uint32_t d = digit(w);
     if (d) acc = fp_mul_cc(acc, tab[d]);
   }
-  fe_store<FpParams>(out, n, lane, acc);
+  return acc;
+}
+
+__global__ void __launch_bounds__(128) inv_thread_kernel(const uint32_t* __restrict__ a,
+                                                         uint32_t* __restrict__ out, int64_t n) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  fe_store<FpParams>(out, n, lane, thread_inv(fe_load<FpParams>(a, n, lane)));
 }
 
 // The canonical 32-bit limbs of a value held as 64-bit limbs t (lane j:
@@ -113,20 +121,13 @@ __device__ __forceinline__ uint32_t warp_mul(uint32_t aj, const uint32_t (&b)[12
   return warp_canon(t, pj, lane);
 }
 
-__global__ void __launch_bounds__(32 * kWarps) inv_warp_kernel(const uint32_t* __restrict__ a,
-                                                               uint32_t* __restrict__ out,
-                                                               int64_t n) {
-  __shared__ uint32_t tab[kWarps][16][12];
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int64_t e = (int64_t)blockIdx.x * kWarps + wid;
-  if (e >= n) return;  // the whole warp
-  uint32_t (*T)[12] = tab[wid];
+// a^(p-2) by one warp: lane j holds limb j of a (aj, lanes >= 12 zero) and
+// every lane all of a (b, overwritten); T is the warp's table of 16 values
+// in shared memory. Returns limb j of the result in lane j.
+__device__ __forceinline__ uint32_t warp_inv(uint32_t aj, uint32_t (&b)[12], uint32_t (*T)[12], uint32_t pj,
+                                          int lane) {
   const bool mine = lane < 12;
-  const uint32_t pj = mine ? FpParams::mod(lane) : 0u;
-  uint32_t b[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) b[i] = a[(int64_t)i * n + e];
-  uint32_t acc = mine ? a[(int64_t)lane * n + e] : 0u;
+  uint32_t acc = aj;
   if (mine) {
     T[0][lane] = SPK_FP_ONE[lane];
     T[1][lane] = acc;
@@ -153,6 +154,22 @@ __global__ void __launch_bounds__(32 * kWarps) inv_warp_kernel(const uint32_t* _
       acc = warp_mul(acc, b, pj, lane);
     }
   }
+  return acc;
+}
+
+__global__ void __launch_bounds__(32 * kWarps) inv_warp_kernel(const uint32_t* __restrict__ a,
+                                                               uint32_t* __restrict__ out,
+                                                               int64_t n) {
+  __shared__ uint32_t tab[kWarps][16][12];
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int64_t e = (int64_t)blockIdx.x * kWarps + wid;
+  if (e >= n) return;  // the whole warp
+  const bool mine = lane < 12;
+  const uint32_t pj = mine ? FpParams::mod(lane) : 0u;
+  uint32_t b[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) b[i] = a[(int64_t)i * n + e];
+  const uint32_t acc = warp_inv(mine ? a[(int64_t)lane * n + e] : 0u, b, tab[wid], pj, lane);
   if (mine) out[(int64_t)lane * n + e] = acc;
 }
 

@@ -18,8 +18,8 @@ the launches of each kernel by lane count and int arguments.
 
 ``YARDSTICKS`` are entry points that only ``chip_smoke.py`` calls, to time a
 kernel against other versions of it (the team point kernels at each team
-size, the one-thread G1 and G2 kernels and Fp inversion, the Fr product
-before the carry flag); they count no launches.
+size, the one-thread G1 and G2 kernels and Fp inversion, the Fr and Fp
+products before the carry flag); they count no launches.
 
 ``PHASE_KERNELS`` are the kernels of the device-resident sumcheck phases,
 which replace JAX functions that are not Pallas kernels: the round kernels
@@ -29,6 +29,13 @@ and two that only ``chip_smoke.py`` calls: K6 with cycle stamps at its
 stages (``sc1_round_stamped``) and K5's Blake2s as a batch
 (``blake2s_batch``). Their arguments are tensors of any shape and ints;
 ``call`` launches them and counts like ``launch``.
+
+``FUSED_KERNELS`` are K1 and K2 where the prover runs them on whole
+functions that the JAX package computes as one function, not as Pallas
+kernels: Jacobian-to-affine normalization of G1 and G2 points
+(``csrc/normalize.cuh``, entry points in ``fp_ops.cu``), the eq tables and
+the openings' quotient ladder (``csrc/fr_tables.cuh``, entry points in
+``fr_ops.cu``). ``call`` launches them too.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ INT_ARGS = {"g1_double": 1, "g2_double": 1}  # k: the launch returns 2^k P
 # yardstick -> (number of input arrays, number of int arguments)
 YARDSTICKS = {
     "fr_mul_sum64": (2, 0),  # field.cuh's product, fr_mul's before the carry flag
+    "fp_mul_sum64": (2, 0),  # field.cuh's product, fp_mul's before the carry flag
     "g1_add_team": (2, 1),  # team size
     "g1_madd_team": (2, 1),  # team size
     "g1_double_team": (1, 2),  # k, team size
@@ -99,6 +107,15 @@ PHASE_KERNELS = {
     "sc2_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:205", 6, 3),
     "sc1_round_stamped": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 19, 4),
     "blake2s_batch": ("sumcheck_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
+}
+
+# entry point -> (source file, JAX function replaced, tensor arguments, int arguments)
+FUSED_KERNELS = {
+    "g1_normalize": ("fp_ops.cu", "spartan_tpu/ops/curve.py:270", 2, 2),  # n, path
+    "g2_normalize": ("fp_ops.cu", "spartan_tpu/ops/curve.py:270", 2, 2),
+    "eq_tables": ("fr_ops.cu", "spartan_tpu/ops/mle.py:89", 2, 2),  # nv, tables
+    "quot_level": ("fr_ops.cu", "spartan_tpu/commitment/scheme.py:175", 4, 2),  # nv, level
+    "quot_tail": ("fr_ops.cu", "spartan_tpu/commitment/scheme.py:175", 4, 2),  # nv, level0
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -216,7 +233,7 @@ def load():
         fn = getattr(lib, "spk_" + name)
         fn.argtypes = [vp] * (n_in + 1) + [i64] + [i32] * n_int + [vp]
         fn.restype = ctypes.c_int
-    for name, (_src, _rep, n_t, n_int) in PHASE_KERNELS.items():
+    for name, (_src, _rep, n_t, n_int) in {**PHASE_KERNELS, **FUSED_KERNELS}.items():
         fn = getattr(lib, "spk_" + name)
         fn.argtypes = [vp] * n_t + [i64] * n_int + [vp]
         fn.restype = ctypes.c_int
@@ -264,10 +281,10 @@ def launch(name: str, out: torch.Tensor, *ins: torch.Tensor, args=()) -> torch.T
 
 
 def call(name: str, tensors, ints, key) -> None:
-    """Launch ``PHASE_KERNELS`` entry ``name`` on int32 CUDA tensors, all on
-    one device and contiguous, with its int arguments. ``key`` is the
-    launch's entry in ``LANES`` (its width)."""
-    _src, _rep, n_t, n_int = PHASE_KERNELS[name]
+    """Launch ``PHASE_KERNELS`` or ``FUSED_KERNELS`` entry ``name`` on int32
+    CUDA tensors, all on one device and contiguous, with its int arguments.
+    ``key`` is the launch's entry in ``LANES`` (its width)."""
+    _src, _rep, n_t, n_int = PHASE_KERNELS.get(name) or FUSED_KERNELS[name]
     if len(tensors) != n_t or len(ints) != n_int:
         raise ValueError(f"{name}: expected {n_t} tensors and {n_int} int arguments")
     dev = tensors[0].device

@@ -252,21 +252,20 @@ def add_mixed(p: PointBatch, q: PointBatch) -> PointBatch:
 # ---------------------------------------------------------------------------
 
 
-def normalize(p: PointBatch) -> PointBatch:
-    """Jacobian -> affine-encoded batch (z = 1, or x = y = z = 0 for
-    infinity), with one batched Fermat inversion (Fp kernel K2)."""
-    f = fp2.KERNEL
+def normalize_plain(p: PointBatch, f: fp2.FpOps = fp2.PLAIN) -> PointBatch:
+    """``normalize`` as a composition over the Fp operations ``f`` (the
+    plain versions by default): one batched inversion (Montgomery's trick,
+    ``fo.batch_inv``, its root by Fermat), then z^-2, z^-3 and the affine
+    coordinates (``spartan_tpu/ops/curve.py:270`` and the affine encoding
+    of ``spartan_tpu/commitment/scheme.py:48``, ``:59``)."""
     inf = is_infinity(p)
     dev = p.device
     if p.group == "g1":
         x, y, z = p.data[0], p.data[1], p.data[2]
-        zinv = fo.inv(FP, z)
-        zinv2 = fo.mont_mul(FP, zinv, zinv)
-        zinv3 = fo.mont_mul(FP, zinv2, zinv)
-        ax = fo.mont_mul(FP, x, zinv2)
-        ay = fo.mont_mul(FP, y, zinv3)
-        one = fo.ones_mont(FP, (p.n,), dev)
-        out = torch.stack([ax, ay, one])
+        zinv = fo.batch_inv(FP, z, f.mul, f.inv)
+        zinv2 = f.mul(zinv, zinv)
+        zinv3 = f.mul(zinv2, zinv)
+        out = torch.stack([f.mul(x, zinv2), f.mul(y, zinv3), fo.ones_mont(FP, (p.n,), dev)])
     else:
         v = p.data.permute(1, 0, 2)
         x, y, z = v[:, 0:2], v[:, 2:4], v[:, 4:6]
@@ -279,6 +278,20 @@ def normalize(p: PointBatch) -> PointBatch:
         out = torch.cat([ax, ay, one], dim=1).permute(1, 0, 2)
     out = torch.where(inf, torch.zeros_like(out), out)
     return PointBatch(out.contiguous(), p.group)
+
+
+def normalize(p: PointBatch) -> PointBatch:
+    """Jacobian -> affine-encoded batch (z = 1, or x = y = z = 0 for
+    infinity): one launch of K2's ``g1_normalize`` or ``g2_normalize``
+    (``csrc/normalize.cuh``), each lane inverting its own z. A CPU batch
+    takes ``normalize_plain``."""
+    if p.device.type == "cpu":
+        return normalize_plain(p)
+    src = p.data.contiguous()
+    out = torch.empty_like(src)
+    if p.n:
+        kernels.call(f"{p.group}_normalize", [src, out], [p.n, 0], (p.n,))
+    return PointBatch(out, p.group)
 
 
 def _coords_host(p: PointBatch):
@@ -337,6 +350,6 @@ def from_jax(point_batch, group: str, device="cpu") -> PointBatch:
 
 __all__ = [
     "PointBatch", "infinity", "is_infinity", "select_point", "double", "add", "add_mixed",
-    "double_plain", "add_plain", "add_mixed_plain", "normalize", "g1_encode", "g1_decode",
-    "g2_encode", "g2_decode", "from_jax",
+    "double_plain", "add_plain", "add_mixed_plain", "normalize", "normalize_plain",
+    "g1_encode", "g1_decode", "g2_encode", "g2_decode", "from_jax",
 ]

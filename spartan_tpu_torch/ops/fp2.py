@@ -7,10 +7,11 @@ sub be one Fp call and every multiply one Fp call over three stacked
 products (Karatsuba), which matters for the plain versions, whose cost is
 per call.
 
-Each function takes the base-field operations ``f`` it runs on: ``KERNEL``
-(the wrappers of the Fp kernel K2, the default) or ``PLAIN`` (the plain
-PyTorch versions, used by the point kernels' plain versions). ``inv`` is
-the Fermat inversion of one batch (``field.fermat_inv``).
+Each function takes the base-field operations ``f`` it runs on, ``PLAIN``
+(the plain PyTorch versions) by default: the point kernels' plain versions
+and ``curve.normalize_plain`` run on it. ``inv`` is the Fermat inversion of
+one batch. On the card the point kernels and ``curve.normalize`` do their
+Fp2 arithmetic inside their own launches.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ class FpOps(NamedTuple):
     inv: Callable
 
 
-KERNEL = FpOps(partial(fo.add, FP), partial(fo.sub, FP), partial(fo.mont_mul, FP),
-               partial(fo.fermat_inv, FP))
 PLAIN = FpOps(partial(fo.add_plain, FP), partial(fo.sub_plain, FP), partial(fo.mont_mul_plain, FP),
               partial(fo.fermat_inv_plain, FP))
 
@@ -41,15 +40,15 @@ def make(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1], dim=1)
 
 
-def add2(a, b, f: FpOps = KERNEL):
+def add2(a, b, f: FpOps = PLAIN):
     return f.add(a, b)
 
 
-def sub2(a, b, f: FpOps = KERNEL):
+def sub2(a, b, f: FpOps = PLAIN):
     return f.sub(a, b)
 
 
-def mul2(a, b, f: FpOps = KERNEL):
+def mul2(a, b, f: FpOps = PLAIN):
     """Karatsuba: t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1);
     c0 = t0 - t1, c1 = t2 - t0 - t1. The three products are one call."""
     a, b = torch.broadcast_tensors(a, b)
@@ -62,7 +61,7 @@ def mul2(a, b, f: FpOps = KERNEL):
     return f.sub(torch.cat([t[:, 0:1], t[:, 2:3]], dim=1), torch.cat([t[:, 1:2], t01], dim=1))
 
 
-def sq2(a, f: FpOps = KERNEL):
+def sq2(a, f: FpOps = PLAIN):
     """(a0 + a1)(a0 - a1) + 2 a0 a1 u, two products in one call."""
     a0, a1 = a[:, 0], a[:, 1]
     lhs = torch.stack([f.add(a0, a1), a0], dim=1)
@@ -71,7 +70,7 @@ def sq2(a, f: FpOps = KERNEL):
     return make(t[:, 0], f.add(t[:, 1], t[:, 1]))
 
 
-def inv2(a, f: FpOps = KERNEL):
+def inv2(a, f: FpOps = PLAIN):
     """Batched inverse conj(a) / (a0^2 + a1^2); inv2(0) = 0."""
     sq = f.mul(a, a)
     norm = f.add(sq[:, 0], sq[:, 1])

@@ -2,21 +2,23 @@
 
 Counterpart of ``spartan_tpu/ops/mle.py``: an nv-variable MLE is its
 (8, 2^nv) table of Montgomery Fr values, index bit i = variable i, variable
-0 the least significant bit; folds fix variable 0 first. Every product, sum
-and difference goes through the Fr kernel K1 (``field.mont_mul``/``add``/
-``sub``).
+0 the least significant bit; folds fix variable 0 first. The folds'
+products, sums and differences go through the Fr kernel K1
+(``field.mont_mul``/``add``/``sub``); the eq tables are one launch of K1's
+``eq_tables``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.ops import field as f
 from spartan_tpu_torch.ops.field import FR
 
 __all__ = [
     "fold", "eval_at", "eq_table", "eq_suffix_tables", "eq_suffix_tables_mont",
-    "sum_mod", "scale",
+    "eq_table_plain", "eq_suffix_tables_plain", "sum_mod", "scale",
 ]
 
 sum_mod = f.sum_mod
@@ -47,25 +49,28 @@ def scale(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return f.mont_mul(FR, table, s.reshape(FR.nlimb, 1))
 
 
-def eq_table(ts: torch.Tensor) -> torch.Tensor:
+def _mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return f.mont_mul_plain(FR, *torch.broadcast_tensors(a, b))
+
+
+def eq_table_plain(ts: torch.Tensor) -> torch.Tensor:
     """eq(t, x) over the whole cube: ts (8, nv) Montgomery -> (8, 2^nv),
-    out[x] = prod_i (t_i x_i + (1 - t_i)(1 - x_i)). Variable i becomes the
-    most significant bit of the table built so far, so blocks stack as
-    [x_i = 0 | x_i = 1]."""
+    out[x] = prod_i (t_i x_i + (1 - t_i)(1 - x_i)), on the plain Fr versions.
+    Variable i becomes the most significant bit of the table built so far,
+    so blocks stack as [x_i = 0 | x_i = 1]."""
     one = f.ones_mont(FR, (1,), ts.device)
     table = one
     for i in range(ts.shape[1]):
         ti = ts[:, i : i + 1]
-        both = f.mont_mul(FR, table[:, None, :], torch.stack([f.sub(FR, one, ti), ti], dim=1))
-        table = both.reshape(FR.nlimb, -1)
+        fac = torch.stack([f.sub_plain(FR, one, ti), ti], dim=1)
+        table = _mul_plain(table[:, None, :], fac).reshape(FR.nlimb, -1)
     return table
 
 
-def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
-    """All suffix eq tables S[j] = eq table of ts[j:], j = 0..nv, for a
-    (8, nv) Montgomery point. S[nv] is the constant 1; S[j]'s variable 0
-    is ts[j], so the new variable is interleaved as the least significant
-    bit."""
+def eq_suffix_tables_plain(ts: torch.Tensor) -> list:
+    """``eq_suffix_tables_mont`` on the plain Fr versions. S[nv] is the
+    constant 1; S[j]'s variable 0 is ts[j], so the new variable is
+    interleaved as the least significant bit."""
     nv = ts.shape[1]
     one = f.ones_mont(FR, (1,), ts.device)
     tables = [None] * (nv + 1)
@@ -73,9 +78,43 @@ def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
     for j in range(nv - 1, -1, -1):
         tj = ts[:, j : j + 1]
         nxt = tables[j + 1]  # (8, M)
-        both = f.mont_mul(FR, nxt[:, :, None], torch.stack([f.sub(FR, one, tj), tj], dim=2))
-        tables[j] = both.reshape(FR.nlimb, -1)  # index v = b + 2 x
+        fac = torch.stack([f.sub_plain(FR, one, tj), tj], dim=2)
+        tables[j] = _mul_plain(nxt[:, :, None], fac).reshape(FR.nlimb, -1)  # index v = b + 2 x
     return tables
+
+
+def _eq_tables(ts: torch.Tensor, tables: int) -> list:
+    """Eq tables 0 .. tables - 1 of the suffix set in one launch of K1's
+    ``eq_tables`` (``csrc/fr_tables.cuh``): one buffer, each table a
+    contiguous (8, 2^(nv-j)) view of it."""
+    nv = ts.shape[1]
+    sizes = [1 << (nv - j) for j in range(tables)]
+    buf = torch.empty(FR.nlimb * sum(sizes), dtype=torch.int32, device=ts.device)
+    kernels.call("eq_tables", [ts.contiguous(), buf], [nv, tables], (nv, tables))
+    out, off = [], 0
+    for m in sizes:
+        out.append(buf[FR.nlimb * off : FR.nlimb * (off + m)].view(FR.nlimb, m))
+        off += m
+    return out
+
+
+def eq_table(ts: torch.Tensor) -> torch.Tensor:
+    """eq(t, x) over the whole cube: ts (8, nv) Montgomery -> (8, 2^nv),
+    variable i bit i of the index (``spartan_tpu/ops/mle.py:89``). One
+    launch on the card; a CPU point takes ``eq_table_plain``."""
+    if ts.device.type == "cpu":
+        return eq_table_plain(ts)
+    return _eq_tables(ts, 1)[0]
+
+
+def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
+    """All suffix eq tables S[j] = eq table of ts[j:], j = 0..nv, for a
+    (8, nv) Montgomery point (``spartan_tpu/ops/mle.py:123``): S[j][v] has
+    bit k of v for variable j + k, and S[nv] is the constant 1. One launch
+    on the card; a CPU point takes ``eq_suffix_tables_plain``."""
+    if ts.device.type == "cpu":
+        return eq_suffix_tables_plain(ts)
+    return _eq_tables(ts, ts.shape[1] + 1)
 
 
 def eq_suffix_tables(ts_ints, device="cpu") -> list:

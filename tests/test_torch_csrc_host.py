@@ -45,6 +45,8 @@ ENTRY = r"""
 #include "fr.cuh"
 #include "fs.cuh"
 #include "sumcheck.cuh"
+#include "normalize.cuh"
+#include "fr_tables.cuh"
 
 // op: 0 double, 1 add, 2 mixed add (team::Op); T: team size
 #define CASE(G, TT, OP) \
@@ -157,6 +159,46 @@ extern "C" void host_mod_r9(const uint32_t* acc, uint32_t* fr) {
   sck::store8(fr, host_mod_r(s));
 }
 
+// Jacobian -> affine (normalize.cuh): G1 (C = 3) or G2 (6), one warp or one
+// thread a point.
+extern "C" int host_normalize(int g2, int warp, const uint32_t* p, uint32_t* out, int64_t n) {
+  using namespace aff;
+  if (warp)
+    shim_launch((unsigned)((n + kWarps - 1) / kWarps), 32 * kWarps, [&] {
+      if (g2) normalize_warp_kernel<6>(p, out, n); else normalize_warp_kernel<3>(p, out, n);
+    });
+  else
+    shim_launch((unsigned)((n + 127) / 128), 128, [&] {
+      if (g2) normalize_thread_kernel<6>(p, out, n); else normalize_thread_kernel<3>(p, out, n);
+    });
+  return 0;
+}
+
+// The eq tables 0 .. tables - 1 of the (8, nv) point ts (fr_tables.cuh).
+extern "C" int host_eq_tables(const uint32_t* ts, uint32_t* out, int nv, int tables) {
+  const int64_t total = ((int64_t)2 << nv) - ((int64_t)1 << (nv + 1 - tables));
+  shim_launch((unsigned)((total + frt::kEqThreads - 1) / frt::kEqThreads), frt::kEqThreads,
+              [&] { frt::eq_tables_kernel(ts, out, nv, total); });
+  return 0;
+}
+
+// The quotient ladder: level launches 0 .. level0 - 1 (remainders into rs,
+// level k's at rs[k]), then the one-block tail at its entry point's size.
+extern "C" int host_ladder(const uint32_t* poly, const uint32_t* point, uint32_t* qcat, uint32_t* ev,
+                           uint32_t* const* rs, int nv, int level0) {
+  const uint32_t* r = poly;
+  for (int level = 0; level < level0; ++level) {
+    const int64_t pairs = (int64_t)1 << (nv - 1 - level);
+    shim_launch((unsigned)((pairs + frt::kLevelThreads - 1) / frt::kLevelThreads), frt::kLevelThreads,
+                [&] { frt::quot_level_kernel(r, point, qcat, rs[level], nv, level); });
+    r = rs[level];
+  }
+  const int64_t pairs0 = level0 < nv ? (int64_t)1 << (nv - 1 - level0) : 1;
+  const unsigned threads = (unsigned)std::min<int64_t>(frt::kTailThreads, std::max<int64_t>(32, pairs0));
+  shim_launch(1, threads, [&] { frt::quot_tail_kernel(r, point, qcat, ev, nv, level0); });
+  return 0;
+}
+
 extern "C" int host_fp_inv(int warp, const uint32_t* a, uint32_t* out, int64_t n) {
   using namespace fpinv;
   if (warp)
@@ -190,6 +232,9 @@ def lib(tmp_path_factory):
     lib.host_g1_madd.argtypes = [vp, vp, vp, i64]
     lib.host_mul_cc.argtypes = [i32, vp, vp, vp, i64]
     lib.host_fp_inv.argtypes = [i32, vp, vp, i64]
+    lib.host_normalize.argtypes = [i32, i32, vp, vp, i64]
+    lib.host_eq_tables.argtypes = [vp, vp, i32, i32]
+    lib.host_ladder.argtypes = [vp, vp, vp, vp, vp, i32, i32]
     lib.host_blake2s_batch.argtypes = [vp, vp, i64, i32]
     lib.host_sample_fr.argtypes = [vp, ctypes.c_uint32, vp]
     lib.host_sample_fr.restype = ctypes.c_uint32
@@ -231,6 +276,24 @@ def test_kernel_source_parses_as_host_cpp(host_csrc, src):
                           "-include", str(host_csrc / "stubs.h"), f"-I{host_csrc}",
                           str(host_csrc / src)], capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-4000:]
+
+
+def test_kernel_sources_link_as_one_library(host_csrc, tmp_path):
+    """Every .cu compiled as host C++ to an object of its own, as nvcc
+    compiles each into the kernel library, and the objects linked into one
+    shared library: a function with external linkage defined in a header
+    that two entry-point files include fails this link as it fails the
+    library's link on the card."""
+    srcs = sorted(p.name for p in CSRC.glob("*.cu"))
+    procs = [subprocess.Popen(["g++", "-x", "c++", "-std=c++20", "-O0", "-fPIC", "-c", "-D__CUDACC__",
+                               "-include", str(host_csrc / "stubs.h"), f"-I{host_csrc}", str(host_csrc / s),
+                               "-o", str(tmp_path / f"{s}.o")], stderr=subprocess.PIPE, text=True) for s in srcs]
+    for s, proc in zip(srcs, procs):
+        _out, err = proc.communicate()
+        assert proc.returncode == 0, (s, err[-4000:])
+    link = subprocess.run(["g++", "-shared", "-o", str(tmp_path / "libkernels.so"),
+                           *[str(tmp_path / f"{s}.o") for s in srcs]], capture_output=True, text=True)
+    assert link.returncode == 0, link.stderr[-4000:]
 
 
 @pytest.fixture(scope="module")
@@ -367,6 +430,78 @@ def test_fp_inv_kernel_source_matches_plain_chain(lib, version):
     lib.host_fp_inv(version == "warp", a.data_ptr(), out.data_ptr(), a.shape[1])
     assert torch.equal(out, tf.fermat_inv_plain(tf.FP, a))
     assert tf.decode_mont(tf.FP, out) == [pow(x, m - 2, m) for x in xs]
+
+
+@pytest.fixture(scope="module")
+def jacobian_lanes():
+    """G1 and G2 batches of 5 Jacobian lanes (doubled affine points, so
+    Z != 1), lane 1 the point at infinity."""
+    out = {}
+    for group, ops, gen, enc in (("g1", hc.G1, hf.G1_GEN, tcv.g1_encode), ("g2", hc.G2, hf.G2_GEN, tcv.g2_encode)):
+        rng = random.Random(31)
+        pts = [ops.mul(gen, rng.randrange(1, hf.R)) for _ in range(5)]
+        pts[1] = None
+        out[group] = tcv.double(enc(pts))
+    return out
+
+
+@pytest.mark.parametrize("path", ["warp", "thread"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_normalize_kernel_source_matches_plain(lib, jacobian_lanes, group, path):
+    """normalize.cuh's Jacobian-to-affine kernels, one warp a point (4
+    lanes: one block, the host run is slow) and one thread a point (5
+    lanes), against normalize_plain, the infinity lane included."""
+    p = jacobian_lanes[group]
+    if path == "warp":
+        p = p.take(slice(0, 4))
+    data = p.data.contiguous()
+    out = torch.full_like(data, -1)
+    assert lib.host_normalize(group == "g2", path == "warp", data.data_ptr(), out.data_ptr(), p.n) == 0
+    assert torch.equal(out, tcv.normalize_plain(p).data)
+
+
+@pytest.mark.parametrize("which", ["eq_table", "suffix"])
+def test_eq_tables_kernel_source_matches_plain(lib, which):
+    """fr_tables.cuh's eq kernel at nv = 9 (2 and 4 blocks of 256 lanes):
+    eq_table alone, and the nv + 1 suffix tables in one buffer, each a
+    contiguous (8, 2^(nv-j)) run, against the plain loops."""
+    from spartan_tpu_torch.ops import mle as tmle
+
+    nv = 9
+    ts = _fr_table(random.Random(43), nv)
+    want = [tmle.eq_table_plain(ts)] if which == "eq_table" else tmle.eq_suffix_tables_plain(ts)
+    out = torch.full((8 * sum(w.shape[1] for w in want),), -1, dtype=torch.int32)
+    assert lib.host_eq_tables(ts.data_ptr(), out.data_ptr(), nv, len(want)) == 0
+    off = 0
+    for w in want:
+        assert torch.equal(out[off : off + w.numel()].view(8, -1), w)
+        off += w.numel()
+
+
+# (nv, level0): the tail alone from 16 pairs, three level launches and the
+# tail from 4 pairs, and the prover's split at nv = 12 (one level launch of
+# 2,048 pairs, the tail from 1,024, two pairs a thread in its first level)
+LADDER_SHAPES = [(5, 0), (6, 3), (12, 1)]
+
+
+@pytest.mark.parametrize("shape", LADDER_SHAPES, ids=lambda s: "nv{}-l{}".format(*s))
+def test_ladder_kernel_sources_match_plain(lib, shape):
+    """fr_tables.cuh's quotient ladder (level launches, then the one-block
+    tail) against _quotients_and_eval_plain: every quotient at its offset of
+    qcat and the evaluation."""
+    from spartan_tpu_torch.commitment import scheme as tscheme
+
+    nv, level0 = shape
+    rng = random.Random(nv)
+    poly, point = _fr_table(rng, 1 << nv), _fr_table(rng, nv)
+    qcat = torch.full((8, (1 << nv) - 1), -1, dtype=torch.int32)
+    ev = torch.full((8, 1), -1, dtype=torch.int32)
+    rs = [_zeros(8, 1 << (nv - 1 - k)) for k in range(level0)]
+    ptrs = (ctypes.c_void_p * max(1, level0))(*[r.data_ptr() for r in rs])
+    assert lib.host_ladder(poly.data_ptr(), point.data_ptr(), qcat.data_ptr(), ev.data_ptr(), ptrs, nv, level0) == 0
+    want_q, want_ev = tscheme._quotients_and_eval_plain(poly, point)
+    assert torch.equal(qcat, want_q)
+    assert torch.equal(ev, want_ev)
 
 
 def _ptr(t: torch.Tensor) -> int:

@@ -92,11 +92,11 @@ def test_kernel_table_names_sources():
     assert all(f"spk_{name}(" in sources for name in kernels.YARDSTICKS)
 
 
-def test_phase_kernel_table_names_sources():
-    """Every sumcheck-phase kernel names its source, which defines its entry
-    point with as many pointer and int parameters as the table says, and
-    the def line of the JAX function it replaces."""
-    for name, (src, rep, n_t, n_int) in kernels.PHASE_KERNELS.items():
+def _check_call_table(table: dict) -> None:
+    """Each entry names its source, which defines its entry point with as
+    many pointer and int parameters as the table says, and the def line of
+    the JAX function it replaces."""
+    for name, (src, rep, n_t, n_int) in table.items():
         text = (kernels.CSRC / src).read_text()
         m = re.search(r"extern \"C\" int spk_" + name + r"\(([^)]*)\)", text)
         assert m, name
@@ -105,7 +105,29 @@ def test_phase_kernel_table_names_sources():
         assert sum("*" in p for p in params) == n_t and sum(p.startswith("int64_t") for p in params) == n_int
         path, line = rep.split(":")
         assert (REPO / path).read_text().splitlines()[int(line) - 1].lstrip().startswith("def "), rep
+
+
+def test_phase_kernel_table_names_sources():
+    """Every sumcheck-phase kernel names its source, which defines its entry
+    point with as many pointer and int parameters as the table says, and
+    the def line of the JAX function it replaces."""
+    _check_call_table(kernels.PHASE_KERNELS)
     assert not set(kernels.PHASE_KERNELS) & set(kernels.KERNELS)
+
+
+def test_fused_kernel_table_names_sources():
+    """The same for the fused K1 and K2 entry points, none of which
+    replaces a Pallas kernel; chip_smoke.py checks and times each of them."""
+    _check_call_table(kernels.FUSED_KERNELS)
+    assert not set(kernels.FUSED_KERNELS) & (set(kernels.KERNELS) | set(kernels.PHASE_KERNELS))
+    assert all(not rep.startswith("spartan_tpu/ops/pallas_") for _s, rep, _t, _i in kernels.FUSED_KERNELS.values())
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    assert set(chip_smoke.FUSED_PATH) == set(kernels.FUSED_KERNELS)
+    assert set(chip_smoke.MOVED) <= set(kernels.KERNELS)
+    assert {k for ks in chip_smoke.K12.values() for k in ks} == (
+        {k for k in kernels.KERNELS if k.startswith(("fr_", "fp_"))} | set(kernels.FUSED_KERNELS))
 
 
 @pytest.mark.gpu
@@ -141,3 +163,20 @@ def test_phase_kernels_match_plain_on_card():
         chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = old
     assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH)
     assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch", "sc1_round_stamped"}
+
+
+@pytest.mark.gpu
+def test_fused_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on one: python -m pytest --noconftest tests/test_torch_imports.py -m gpu")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    old = chip_smoke.NORMALIZE_LANES, chip_smoke.EQ_NV, chip_smoke.LADDER_NVS
+    chip_smoke.NORMALIZE_LANES, chip_smoke.EQ_NV, chip_smoke.LADDER_NVS = (1, 16, 4096), 10, (12, 5)
+    try:
+        rows = chip_smoke.phase_fused_kernels(torch.device("cuda", 0), chip_smoke.Card())
+    finally:
+        chip_smoke.NORMALIZE_LANES, chip_smoke.EQ_NV, chip_smoke.LADDER_NVS = old
+    assert [r["name"] for r in rows] == list(chip_smoke.FUSED_PATH)
+    assert all(r["max_abs_err"] == 0 for r in rows)

@@ -66,11 +66,27 @@ exits non-zero:
    by kernel, the card's busy and idle share, the copies from the device
    to the host in the prove and inside each sumcheck span); each of the
    device route's two phases must hold exactly one copy, at its end.
+6. batched proving (``protocol/batched.py``): prove_many of 64 distinct
+   instances of phase 4's circuit (circuit seeds 0..63 at density 0: one
+   set of matrices, their own v and w, built in a pool of processes) on
+   phase 4's pk and pp; every proof must equal the sequential prove of its
+   instance byte for byte, verify must accept two and reject a tampered
+   one; the batched prove's launches by entry point are printed and
+   asserted (18 sumcheck launches on the batch-axis kernels, one
+   g1_normalize and one g2_normalize a stage, every kernel of the path at
+   least once); the warm batched and sequential wall time and proofs/s
+   beside the card's name and power limit; the batched spans, and one
+   batched prove under torch.profiler as in 5. Phase 2 holds the
+   batch-axis kernels (sc1_round_b, prod2_round_b, sc1_tail_b, sc2_tail_b)
+   bit-exact against their plain versions at 1, 3 and 64 instances at
+   every width the batched prove launches them at, and times them at 1, 8
+   and 64 beside their bound.
 
 The line before the last is a JSON object with one entry per kernel entry
 point (those whose work moved into the fused kernels, launched in no step
-of phase 4's run, carry ``"main_path": false``); the last line is the
-contract object with the device.
+of phase 4's run, carry ``"main_path": false``; the batch-axis kernels'
+launches are those of phase 6's batched prove, the others phase 4's); the
+last line is the contract object with the device.
 """
 
 from __future__ import annotations
@@ -941,6 +957,170 @@ def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: the sumcheck-phase kernels on a batch axis (prove_many)
+# ---------------------------------------------------------------------------
+
+BATCH_PATH = ("sc1_round_b", "prod2_round_b", "sc1_tail_b", "sc2_tail_b")
+BATCH_B = 64  # the batched phase's instances: BASELINE.json:11's 64 independent 2^16 instances
+BATCH_CHECK_B = (1, 3, 64)  # instances a batch-axis launch is held bit-exact at
+BATCH_TIMED_B = (1, 8, 64)  # and timed at; the row's numbers are those at BATCH_B
+
+
+def _batch_widths(name: str):
+    """(pairs, fold) of every launch of batch-axis kernel `name` in the
+    2^16 batched prove (protocol.fused's schedule: the rounds up to the
+    tail, then the tail)."""
+    from spartan_tpu_torch.protocol import fused
+
+    i0 = fused.tail_start(FS_LOG_N)
+    if "tail" in name:
+        return [(1 << (FS_LOG_N - 1 - i0), i0 > 0)]
+    return [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(i0)]
+
+
+def _batch_args(name: str, pairs: int, fold: bool, bsz: int, seed: int, dev) -> dict:
+    """Seeded arguments of a batch-axis launch of `name` for bsz instances,
+    laid out as protocol.fused's batched phases lay them out: tables (B, 8,
+    n); the weights at an instance stride of their own, wider than a
+    table's; the transcript arrays views of one fused._Buffer with a copy an
+    instance. The same seed gives the same arguments."""
+    from spartan_tpu_torch.protocol import fused
+
+    rng = np.random.default_rng(seed)
+    sc1, tail = name.startswith("sc1"), "tail" in name
+    rounds, d = (pairs.bit_length() if tail else 1), (FS_LOG_N + 3 if sc1 else 3)
+    width = (4 if fold else 2) * pairs
+
+    def rows(n):  # (B, 8, n) seeded elements
+        return _fr_rows(bsz * n, rng, dev).view(8, bsz, n).transpose(0, 1).contiguous()
+
+    a = {"tabs": [rows(width) for _ in range(3 if sc1 else 2)], "fold": fold, "rounds": rounds, "d": d}
+    if sc1:
+        ws = torch.cat([rows(pairs >> k).reshape(bsz, -1) for k in range(rounds)], dim=1)
+        wide = torch.zeros((bsz, ws.shape[1] + 64), dtype=torch.int32, device=dev)
+        wide[:, : ws.shape[1]] = ws
+        a["s"] = wide[:, : ws.shape[1]] if tail else wide[:, : ws.shape[1]].view(bsz, 8, pairs)
+    parts = [("state", 1), ("evals", rounds * d), ("rs", rounds), ("r_mont", 1), ("ctr", 1),
+             ("sums", fused.SUMS_ROWS)]
+    if sc1:
+        parts += [("tor", rounds + 1), ("pre", 1), ("coef", 6 * d), ("vabc", 3), ("rabc", 3)]
+    buf = fused._Buffer(parts, bsz)
+    buf.set("state", rng.integers(0, 1 << 32, size=(bsz, 8), dtype=np.uint64).astype(np.uint32).view(np.int32))
+    for name_ in ("r_mont",) + (("tor", "pre") if sc1 else ()):
+        count = buf.offsets[name_][1]
+        buf.set(name_, _fr_rows(bsz * count, rng, torch.device("cpu")).t().numpy())
+    if sc1:
+        buf.set("coef", np.stack([fused._words(fused.first_coef(int(rng.integers(1 << 62)), d - 1))
+                                  for _ in range(bsz)]))
+    buf.upload(dev)
+    a["buf"] = buf
+    return a
+
+
+def _run_b(name: str, a: dict, plain: bool):
+    """The batch-axis wrapper (a launch, counted) or its plain version on
+    `a`, in place; returns the tables a round hands on."""
+    from spartan_tpu_torch.protocol import fused
+
+    buf, rounds = a["buf"], a["rounds"]
+    v = {k: buf.views(k) for k in buf.offsets}
+    evals = v["evals"].view(buf.copies, rounds, a["d"], 8)
+    consts = fused.emit_consts(FS_LOG_N + 2, a["tabs"][0].device)
+    if name == "sc1_round_b":
+        args = (*a["tabs"], a["s"], a["fold"], consts, v["tor"][:, 0], v["tor"][:, 1], v["pre"],
+                v["coef"].view(buf.copies, 6, a["d"], 8), v["state"], evals[:, 0], v["rs"][:, 0], v["r_mont"])
+    elif name == "prod2_round_b":
+        args = (*a["tabs"], a["fold"], v["state"], evals[:, 0], v["rs"][:, 0], v["r_mont"])
+    elif name == "sc1_tail_b":
+        args = (*a["tabs"], a["s"], a["fold"], consts, v["tor"][:, :rounds], v["pre"],
+                v["coef"].view(buf.copies, 6, a["d"], 8), v["state"], evals, v["rs"], v["r_mont"], v["vabc"],
+                v["rabc"])
+    else:
+        args = (*a["tabs"], a["fold"], v["state"], evals, v["rs"], v["r_mont"])
+    if plain:
+        return getattr(fused, name + "_plain")(*args)
+    if name.endswith("round_b"):
+        return getattr(fused, name)(*args, v["ctr"], v["sums"])
+    return getattr(fused, name)(*args)
+
+
+def _batch_row(name: str, card: Card, dev, seed: int = 8642) -> dict:
+    """A batch-axis kernel against its plain version (each instance's
+    single-instance plain version) at B in BATCH_CHECK_B, at every width
+    the batched 2^16 prove launches it at: every instance's outputs
+    bit-exact (tables, evaluations, challenges, pre, coefficients, chain
+    state, round 4's values; the ticket counters and sums back at 0). Its
+    device time (CUDA graph of 20 wrapper calls) at B in BATCH_TIMED_B,
+    and the bound, each instance's work as the single rows count it; the
+    row's numbers at BATCH_B and the first width."""
+    from spartan_tpu_torch import kernels
+
+    single, sc1 = name[:-2], name.startswith("sc1")
+    row, widths = None, []
+    for pairs, fold in _batch_widths(name):
+        for bsz in sorted(set(BATCH_CHECK_B) | set(BATCH_TIMED_B)):
+            wseed = seed + 131 * pairs + 7 * bsz + int(fold)
+            mine = _batch_args(name, pairs, fold, bsz, wseed, dev)
+            got = _run_b(name, mine, False)
+            w = {"pairs": pairs, "fold": fold, "B": bsz}
+            if bsz in BATCH_CHECK_B:
+                ref = _batch_args(name, pairs, fold, bsz, wseed, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                want = _run_b(name, ref, True)
+                torch.cuda.synchronize()
+                w["plain_ms"] = (time.perf_counter() - t) * 1e3
+                same = torch.equal(mine["buf"].dev, ref["buf"].dev)
+                if name.endswith("round_b") and fold:
+                    same = same and all(torch.equal(x, y) for x, y in zip(got, want))
+                check(same, f"{name} pairs={pairs} fold={fold} B={bsz}: kernel disagrees with its plain version")
+                ctr = mine["buf"].views("ctr")
+                check(not ctr.any() and not mine["buf"].views("sums").any(),
+                      f"{name} pairs={pairs} B={bsz}: ticket counters or sums not back at 0")
+            if bsz in BATCH_TIMED_B:
+                w["device_ms"] = _graph_ms_of(lambda: _run_b(name, mine, False))
+                if bsz == BATCH_B:
+                    w["ms"] = cuda_ms(lambda: _run_b(name, mine, False), 10)
+            # each instance's work as the single-instance rows count it, its draws from its chain state
+            states = mine["buf"].views("state").reshape(bsz, 8).cpu()
+            n_rounds = 1 if name.endswith("round_b") else pairs.bit_length()
+            msg_words = 10 + 8 * ((FS_LOG_N + 3) if sc1 else 3)
+            compressions = bsz * n_rounds * _compressions(msg_words)
+            for st in states:
+                if name.endswith("round_b"):
+                    compressions += _draws(st)
+                else:
+                    compressions += n_rounds + (_compressions(32) + _draws(st, 3) if sc1 else 0)
+            products, int_ops, nbytes = _phase_cost(single, pairs, fold, 0)
+            w["bound_ms"], w["bound_by"] = card.bound(bsz * products * FR_PRODUCT, bsz * nbytes,
+                                                      compressions * B2S_OPS + bsz * int_ops)
+            print(f"{name} pairs={pairs} fold={int(fold)} B={bsz}"
+                  + (" bit-exact" if bsz in BATCH_CHECK_B else "")
+                  + (f": device {w['device_ms']:.5f} ms" if "device_ms" in w else "")
+                  + (f", plain {w['plain_ms']:.1f} ms" if "plain_ms" in w else "")
+                  + f", bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
+            widths.append(w)
+            if row is None and bsz == BATCH_B:
+                src, rep, _nt, _ni = kernels.PHASE_KERNELS[name]
+                row = {"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
+                       "max_abs_err": 0, "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+                       "bound_by": w["bound_by"], "library_ms": None, "device_ms": w["device_ms"], "B": bsz}
+            del mine
+    row["widths"] = widths
+    for bsz in BATCH_TIMED_B:
+        at = [x for x in widths if x["B"] == bsz]
+        print(f"{name} B={bsz} over the batched 2^16 prove's {len(at)} launches by device time: "
+              f"{sum(x['device_ms'] for x in at):.4f} ms, bound {sum(x['bound_ms'] for x in at):.5f} ms", flush=True)
+    return row
+
+
+def phase_batch_kernels(dev, card: Card) -> list:
+    """The batch-axis sumcheck kernels, each against its plain version at
+    every width of the batched 2^16 prove, at 1, 3 and 64 instances."""
+    return [_batch_row(name, card, dev) for name in BATCH_PATH]
+
+
+# ---------------------------------------------------------------------------
 # Phase 2, continued: K1 and K2 run whole where the prover calls them (FUSED_KERNELS)
 # ---------------------------------------------------------------------------
 
@@ -1369,7 +1549,120 @@ def phase_full(dev, card: Card, log_n: int = 16):
     wrong_v[0] = (wrong_v[0] + 1)
     how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), wrong_v, proof, vp))
     print(f"full: wrong public input -> {how}", flush=True)
-    return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp)
+    return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp), (pk, pp, vp)
+
+
+def _witness(job):
+    """(digest of the matrices, v, w) of the density-0 circuit of circuit seed
+    `seed` at 2^log_n: a task of phase 6's pool of processes."""
+    log_n, seed = job
+    a, b, c, v, w = _circuit(log_n, 2, 0, seed)
+    return hashlib.sha256(repr((a, b, c)).encode()).hexdigest(), v, w
+
+
+BATCH_SPANS = ("Batch Prove 0: encode z", "Batch Prove 1: commits", "Batch Prove 2: opens z(r_v,0..)", "Batch Prove 3: sparse mat-vec",
+               "Batch Prove SC1 (fused)", "Batch Prove 5: eval_on_x + combine", "Batch Prove SC2 (fused)",
+               "Batch Prove 6: opens z(r_y)")
+
+
+def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) -> dict:
+    """prove_many of bsz distinct instances of phase 4's circuit (circuit
+    seeds 0 .. bsz - 1 at density 0 give one set of matrices and their own v
+    and w; built in a pool of processes) on phase 4's pk and pp. Every
+    batched proof must equal the sequential prove of its instance; verify
+    must accept two and reject a tampered one; the batched prove's launches
+    by entry point (18 sumcheck launches; one g1_normalize and one
+    g2_normalize a stage) are asserted. Prints the warm batched and the
+    sequential wall time and proofs/s, the batched spans, and (phase_profile)
+    device time by entry point. Returns the batched run's launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from spartan_tpu_torch import kernels, timers
+    from spartan_tpu_torch.protocol import fused
+    from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
+    from spartan_tpu_torch.protocol.batched import prove_many, verify_batch
+    from spartan_tpu_torch.protocol.proof import Proof
+
+    pk, pp, vp = keys
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        made = list(pool.map(_witness, [(log_n, seed) for seed in range(bsz)]))
+    check(len({d for d, _v, _w in made}) == 1, "circuit seeds at density 0 gave different matrices")
+    instances = [(v, w) for _d, v, w in made]
+    check(len({tuple(w) for _v, w in instances}) == bsz, "the batch's witnesses are not distinct")
+    print(f"batched: {bsz} instances (circuit seeds 0..{bsz - 1}, density 0, one set of matrices) built in "
+          f"{time.perf_counter() - t0:.1f} s (host, a pool of processes)", flush=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # the batched path: every count set to 0 just before it and read just after
+    timers.reset()
+    kernels.reset_counts()
+    proofs, cold_s = timed(lambda: prove_many(pk, instances, pp))
+    launches = dict(kernels.LAUNCHES)
+    widths = {k: sorted([list(key), m] for key, m in kernels.LANES[k].items()) for k in BATCH_PATH}
+    print("batched: launches by entry point " + json.dumps({k: m for k, m in sorted(launches.items()) if m}),
+          flush=True)
+    print("batched: the batch-axis kernels' launches [[pairs, fold, B], n] " + json.dumps(widths), flush=True)
+    i0 = fused.tail_start(log_n)
+    for k in BATCH_PATH:
+        want = 1 if "tail" in k else i0
+        check(launches.get(k, 0) == want, f"{k}: {launches.get(k, 0)} launches in the batched prove, not {want}")
+    sumcheck = sum(launches.get(k, 0) for k in (*PHASE_PATH, *BATCH_PATH))
+    check(sumcheck == 18, f"the batched prove launched {sumcheck} sumcheck kernels, not 18")
+    for k, stages in (("g1_normalize", 1), ("g2_normalize", 2)):
+        check(launches.get(k, 0) == stages, f"{k}: {launches.get(k, 0)} launches, not one a stage ({stages})")
+    for k in (*kernels.KERNELS, *BATCH_PATH, *FUSED_PATH):
+        if k not in MOVED:
+            check(launches.get(k, 0) > 0, f"kernel {k} never launched in the batched prove")
+    print(f"batched: sumcheck launches {sumcheck} (B = {bsz}); g1_normalize {launches['g1_normalize']}, "
+          f"g2_normalize {launches['g2_normalize']}; eq_tables {launches['eq_tables']}, quot_level "
+          f"{launches['quot_level']}, quot_tail {launches['quot_tail']}", flush=True)
+    print("batched: spans of the first prove_many " + json.dumps({k: round(x, 4) for k, x in timers.SPANS.items()}),
+          flush=True)
+
+    seq, seq_s = timed(lambda: [MLArgumentForR1CS.prove(pk, v, w, pp) for v, w in instances])
+    data = [p.serialize() for p in proofs]
+    bad = [b for b in range(bsz) if data[b] != seq[b].serialize()]
+    check(not bad, f"batched proofs of instances {bad} differ from their sequential proofs")
+    check(len(set(data)) == bsz, "the batch's proofs are not distinct")
+    pair = [0, bsz - 1]
+    check(verify_batch(pk.vk(), [instances[b] for b in pair], [proofs[b] for b in pair], vp) == [True, True],
+          "verify rejected a batched proof")
+    bad_bytes = bytearray(data[1])
+    bad_bytes[len(bad_bytes) - log_n * 96 + 95] ^= 0x80  # the y-sign flag of the last opening's first point
+    how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), instances[1][0], Proof.deserialize(bytes(bad_bytes)),
+                                                    vp))
+    print(f"batched: all {bsz} proofs equal the sequential proofs byte for byte; verify accepts instances {pair}; "
+          f"tampered opening of instance 1 -> {how}", flush=True)
+
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        timers.reset()
+        _p, wall = timed(lambda: prove_many(pk, instances, pp))
+        walls.append(wall)
+    warm = min(walls)
+    print(f"batched: peak device memory of the warm prove_many {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(torch.cuda.max_memory_allocated, pk and pp included)", flush=True)
+    print(card_line(), flush=True)
+    print(f"batched: B = {bsz} at 2^{log_n}: prove_many cold {cold_s:.3f} s, warm {', '.join(f'{x:.3f}' for x in walls)} s "
+          f"-> {bsz / warm:.3f} proofs/s; the sequential loop (warm) {seq_s:.3f} s -> {bsz / seq_s:.3f} proofs/s; "
+          f"{seq_s / warm:.2f} x", flush=True)
+    print("batched: spans of the last warm prove_many " + json.dumps({k: round(x, 4) for k, x in timers.SPANS.items()}),
+          flush=True)
+    inside = phase_profile(lambda: prove_many(pk, instances, pp), f"prove_many B={bsz}", warm=1)
+    for label in BATCH_SPANS[4:7:2]:
+        check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one at the end "
+              "of the phase")
+    return launches
 
 
 SUMCHECK_SPANS = ("Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)", "Prove Sumcheck 1", "Prove 4",
@@ -1409,7 +1702,7 @@ def phase_profile(prove, route: str, warm: int = 5) -> dict:
     labels = set(timers.SPANS)  # the spans' record_function ranges, on the device timeline too
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
-            if e.name in SUMCHECK_SPANS:
+            if e.name in SUMCHECK_SPANS + BATCH_SPANS[4:7:2]:
                 ranges[e.name] = (e.time_range.start, e.time_range.end)
             continue
         if getattr(e, "is_user_annotation", False) or e.name in labels:
@@ -1457,9 +1750,9 @@ def _entry_point(kernel: str):
     m = re.search(r"pt_kernel<(Fe<FpParams>|FpC|Fp2), (\d)", kernel)
     if m:
         return ("g2_" if m.group(1) == "Fp2" else "g1_") + ("madd", "add", "double")[int(m.group(2))]
-    m = re.search(r"\b(sc1_round|prod2_round|sc1_tail|sc2_tail|blake2s_batch)_kernel", kernel)
+    m = re.search(r"\b(sc1_round|prod2_round|sc1_tail|sc2_tail|blake2s_batch)(_b)?_kernel", kernel)
     if m:
-        return m.group(1)
+        return m.group(1) + (m.group(2) or "")
     m = re.search(r"normalize_(?:warp|thread)_kernel<(\d)>", kernel)
     if m:
         return "g1_normalize" if m.group(1) == "3" else "g2_normalize"
@@ -1540,11 +1833,12 @@ def main() -> int:
         rows = phase_kernels(dev, card)
         rows += phase_fs_kernels(dev, card)
         rows += phase_fused_kernels(dev, card)
+        rows += phase_batch_kernels(dev, card)
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
     phase_jax_phases(dev)
-    launches, shapes, prove = phase_full(dev, card)
+    launches, shapes, prove, keys = phase_full(dev, card)
     _fr_mul_in_prove(rows, shapes["fr_mul"])
     _fp_sub_in_prove(card, shapes["fp_sub"], dev)
     inside = phase_profile(prove, "device route")
@@ -1552,8 +1846,9 @@ def main() -> int:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one "
               "at the end of the phase")
     phase_profile(host_loop(prove), "host loop", warm=3)
+    batch_launches = phase_batched(dev, card, keys)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = batch_launches.get(row["name"], 0) if row["name"] in BATCH_PATH else launches[row["name"]]
         row["main_path"] = row["name"] not in MOVED or row["launches"] > 0
         check(row["launches"] > 0 or not row["main_path"], f"kernel {row['name']} never launched in the main path")
     print("main path: entry points whose work the fused kernels took over, launched none in its run: "

@@ -455,3 +455,63 @@ sc2_tail_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t*
   sck::tail_body<2>(tabs, nullptr, nullptr, nullptr, nullptr, nullptr, state, evals, rs, r_mont, nullptr, nullptr,
                     reinterpret_cast<uint32_t*>(smem), pairs0, fold, rounds, 0);
 }
+
+// The batch axis: B instances of one circuit in one launch, each with its own
+// tables, weights, transcript and ticket. A round's grid is (blocks, B) with
+// blockIdx.y the instance, so gridDim.x, which round_sums counts tickets
+// against, is the blocks of one instance; a tail's grid is B blocks, one an
+// instance, each with its own dynamic shared memory. The bodies are the
+// single-instance ones on pointers offset to the instance: a table by its
+// (8, n) size, the weights by s_stride words, and every transcript array
+// (pre, coef, state, evals, r_out or rs, r_mont, tor, vabc, rabc, ctr, sums)
+// by ist words, the size of one instance's copy of the phase's buffer.
+namespace sck {
+__device__ __forceinline__ int64_t table_words(int64_t pairs, int fold) { return 8 * (fold ? 4 : 2) * pairs; }
+}  // namespace sck
+
+__global__ void __launch_bounds__(sck::kThreads)
+sc1_round_b_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s,
+                   const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor_i,
+                   const uint32_t* __restrict__ tor_next, uint32_t* pre, uint32_t* coef, uint32_t* state,
+                   uint32_t* evals, uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out,
+                   uint32_t* bz_out, uint32_t* cz_out, unsigned long long* sums, int64_t pairs, int fold, int D,
+                   int64_t s_stride, int64_t ist) {
+  fs::NoMark mark;
+  const int64_t b = blockIdx.y, in = b * sck::table_words(pairs, fold), out = b * 16 * pairs, st = b * ist;
+  sck::sc1_round_body(az + in, bz + in, cz + in, s + b * s_stride, consts, tor_i + st, tor_next + st, pre + st,
+                      coef + st, state + st, evals + st, r_out + st, r_mont + st, ctr + st, az_out + out,
+                      bz_out + out, cz_out + out, sums + st / 2, pairs, fold, D, mark);
+}
+
+__global__ void __launch_bounds__(sck::kThreads)
+prod2_round_b_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* r_out,
+                     uint32_t* r_mont, uint32_t* ctr, uint32_t* w_out, uint32_t* z_out, unsigned long long* sums,
+                     int64_t pairs, int fold, int64_t ist) {
+  const int64_t b = blockIdx.y, in = b * sck::table_words(pairs, fold), out = b * 16 * pairs, st = b * ist;
+  sck::prod2_round_body(w + in, z + in, state + st, evals + st, r_out + st, r_mont + st, ctr + st, w_out + out,
+                        z_out + out, sums + st / 2, pairs, fold);
+}
+
+__global__ void __launch_bounds__(sck::kTailThreads)
+sc1_tail_b_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s_cat,
+                  const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor, uint32_t* pre,
+                  const uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont,
+                  uint32_t* vabc, uint32_t* rabc, int64_t pairs0, int fold, int rounds, int D, int64_t s_stride,
+                  int64_t ist) {
+  extern __shared__ uint4 smem[];
+  const int64_t b = blockIdx.x, in = b * sck::table_words(pairs0, fold), st = b * ist;
+  const uint32_t* const tabs[3] = {az + in, bz + in, cz + in};
+  sck::tail_body<3>(tabs, s_cat + b * s_stride, consts, tor + st, pre + st, coef + st, state + st, evals + st,
+                    rs + st, r_mont + st, vabc + st, rabc + st, reinterpret_cast<uint32_t*>(smem), pairs0, fold,
+                    rounds, D);
+}
+
+__global__ void __launch_bounds__(sck::kTailThreads)
+sc2_tail_b_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
+                  uint32_t* r_mont, int64_t pairs0, int fold, int rounds, int64_t ist) {
+  extern __shared__ uint4 smem[];
+  const int64_t b = blockIdx.x, in = b * sck::table_words(pairs0, fold), st = b * ist;
+  const uint32_t* const tabs[2] = {w + in, z + in};
+  sck::tail_body<2>(tabs, nullptr, nullptr, nullptr, nullptr, nullptr, state + st, evals + st, rs + st,
+                    r_mont + st, nullptr, nullptr, reinterpret_cast<uint32_t*>(smem), pairs0, fold, rounds, 0);
+}

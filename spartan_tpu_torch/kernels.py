@@ -24,10 +24,11 @@ products before the carry flag); they count no launches.
 ``PHASE_KERNELS`` are the kernels of the device-resident sumcheck phases,
 which replace JAX functions that are not Pallas kernels: the round kernels
 K6 and K7, each round with its transcript step (K5) in the same launch, and
-the one-block tails that run a phase's last rounds (``csrc/sumcheck_ops.cu``);
-and two that only ``chip_smoke.py`` calls: K6 with cycle stamps at its
-stages (``sc1_round_stamped``) and K5's Blake2s as a batch
-(``blake2s_batch``). Their arguments are tensors of any shape and ints;
+the one-block tails that run a phase's last rounds (``csrc/sumcheck_ops.cu``),
+each also with a batch axis (``*_b``: B instances of one circuit a launch,
+for ``protocol/batched.py``); and two that only ``chip_smoke.py`` calls:
+K6 with cycle stamps at its stages (``sc1_round_stamped``) and K5's
+Blake2s as a batch (``blake2s_batch``). Their arguments are tensors of any shape and ints;
 ``call`` launches them and counts like ``launch``.
 
 ``FUSED_KERNELS`` are K1 and K2 where the prover runs them on whole
@@ -107,6 +108,11 @@ PHASE_KERNELS = {
     "sc2_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:205", 6, 3),
     "sc1_round_stamped": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 19, 4),
     "blake2s_batch": ("sumcheck_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
+    # the batch axis: B instances a launch (ints: ..., B, then the weights' and the transcript's instance strides)
+    "sc1_round_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:269", 18, 7),  # + _sc1_emit_core_b :248
+    "prod2_round_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:371", 10, 5),  # + _sc2_emit_core_b :377
+    "sc1_tail_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:290", 14, 7),
+    "sc2_tail_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:388", 6, 5),
 }
 
 # entry point -> (source file, JAX function replaced, tensor arguments, int arguments)

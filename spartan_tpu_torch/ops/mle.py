@@ -19,6 +19,7 @@ from spartan_tpu_torch.ops.field import FR
 __all__ = [
     "fold", "eval_at", "eq_table", "eq_suffix_tables", "eq_suffix_tables_mont",
     "eq_table_plain", "eq_suffix_tables_plain", "sum_mod", "scale",
+    "fold_b", "eq_table_b", "eq_suffix_tables_b",
 ]
 
 sum_mod = f.sum_mod
@@ -83,17 +84,26 @@ def eq_suffix_tables_plain(ts: torch.Tensor) -> list:
     return tables
 
 
+def _eq_sizes(nv: int, tables: int) -> list:
+    return [1 << (nv - j) for j in range(tables)]
+
+
 def _eq_tables(ts: torch.Tensor, tables: int) -> list:
     """Eq tables 0 .. tables - 1 of the suffix set in one launch of K1's
     ``eq_tables`` (``csrc/fr_tables.cuh``): one buffer, each table a
     contiguous (8, 2^(nv-j)) view of it."""
     nv = ts.shape[1]
-    sizes = [1 << (nv - j) for j in range(tables)]
-    buf = torch.empty(FR.nlimb * sum(sizes), dtype=torch.int32, device=ts.device)
+    buf = torch.empty(FR.nlimb * sum(_eq_sizes(nv, tables)), dtype=torch.int32, device=ts.device)
     kernels.call("eq_tables", [ts.contiguous(), buf], [nv, tables], (nv, tables))
+    return [v[0] for v in _eq_views(buf[None], nv, tables)]
+
+
+def _eq_views(buf: torch.Tensor, nv: int, tables: int) -> list:
+    """Table j of every row of buf (B, 8 total), the tables one after the
+    other in each row: (B, 8, 2^(nv-j)) views."""
     out, off = [], 0
-    for m in sizes:
-        out.append(buf[FR.nlimb * off : FR.nlimb * (off + m)].view(FR.nlimb, m))
+    for m in _eq_sizes(nv, tables):
+        out.append(buf[:, FR.nlimb * off : FR.nlimb * (off + m)].view(buf.shape[0], FR.nlimb, m))
         off += m
     return out
 
@@ -120,3 +130,51 @@ def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
 def eq_suffix_tables(ts_ints, device="cpu") -> list:
     """``eq_suffix_tables_mont`` for a point given as host ints."""
     return eq_suffix_tables_mont(f.encode_mont(FR, ts_ints, device))
+
+
+# ---------------------------------------------------------------------------
+# The batch axis: B instances, each table (8, N) of a (B, 8, N) tensor
+# ---------------------------------------------------------------------------
+
+
+def fold_b(table: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``fold`` of each instance by its own r: table (B, 8, N), r (B, 8)
+    Montgomery -> (B, 8, N / 2) (``spartan_tpu/protocol/batched.py:59``),
+    one launch of each Fr kernel for the batch."""
+    t = table.transpose(0, 1)  # (8, B, N): limbs first, as the field wrappers take them
+    even, odd = t[..., 0::2], t[..., 1::2]
+    diff = f.sub(FR, odd, even)
+    return f.add(FR, even, f.mont_mul(FR, diff, r.t()[:, :, None])).transpose(0, 1).contiguous()
+
+
+def _eq_tables_b(ts: torch.Tensor, tables: int) -> list:
+    """Eq tables 0 .. tables - 1 of each instance's point, ts (B, 8, nv)
+    Montgomery: one buffer (B, 8 total), a row an instance, the tables one
+    after the other in it. On the card one ``eq_tables`` launch an instance
+    writes its row; a CPU point takes the plain versions. Returns table j
+    as a (B, 8, 2^(nv-j)) view."""
+    bsz, _k, nv = ts.shape
+    buf = torch.empty((bsz, FR.nlimb * sum(_eq_sizes(nv, tables))), dtype=torch.int32, device=ts.device)
+    views = _eq_views(buf, nv, tables)
+    for b in range(bsz):
+        if ts.device.type == "cpu":
+            plain = [eq_table_plain(ts[b])] if tables == 1 else eq_suffix_tables_plain(ts[b])
+            for v, t in zip(views, plain):
+                v[b].copy_(t)
+        else:
+            kernels.call("eq_tables", [ts[b].contiguous(), buf[b]], [nv, tables], (nv, tables))
+    return views
+
+
+def eq_table_b(ts: torch.Tensor) -> torch.Tensor:
+    """``eq_table`` of each instance's point: ts (B, 8, nv) Montgomery ->
+    (B, 8, 2^nv) (``spartan_tpu/protocol/batched.py:87``)."""
+    return _eq_tables_b(ts, 1)[0]
+
+
+def eq_suffix_tables_b(ts: torch.Tensor) -> list:
+    """``eq_suffix_tables_mont`` of each instance's point: ts (B, 8, nv)
+    Montgomery -> S[j] (B, 8, 2^(nv-j)), j = 0..nv
+    (``spartan_tpu/protocol/batched.py:68``), views of one buffer whose row
+    b holds instance b's tables one after the other."""
+    return _eq_tables_b(ts, ts.shape[2] + 1)

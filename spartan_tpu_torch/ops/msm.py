@@ -160,11 +160,14 @@ def msm_many(points: PointBatch, sizes: Sequence[int], scalars: torch.Tensor, c:
     """L independent MSMs in one pass.
 
     points: affine-encoded bases, the L problems' bases concatenated
-    (sum(sizes) lanes). scalars: (8, sum(sizes)) canonical Fr limbs.
-    Returns one Jacobian point per problem (a batch of L lanes)."""
+    (sum(sizes) lanes), or, when the L problems share their bases (every
+    size equal to points.n), those bases once, read by index. scalars: (8,
+    sum(sizes)) canonical Fr limbs. Returns one Jacobian point per problem
+    (a batch of L lanes)."""
     sizes = [int(s) for s in sizes]
     n = sum(sizes)
-    if points.n != n or scalars.shape[1] != n:
+    shared = points.n != n and all(s == points.n for s in sizes)
+    if scalars.shape[1] != n or (points.n != n and not shared):
         raise ValueError("points, scalars and sizes disagree")
     c = default_window(n) if c is None else c
     dev = points.device
@@ -181,7 +184,8 @@ def msm_many(points: PointBatch, sizes: Sequence[int], scalars: torch.Tensor, c:
     keys = keys.reshape(-1)[nz]
     keys, order = torch.sort(keys)
     lane = nz[order]
-    bases = points.take(lane % n)
+    idx = lane % n  # the scalar's lane
+    bases = points.take(idx % points.n if shared else idx)
     bases = _neg_y(bases, (digits.reshape(-1)[lane] < 0))
 
     buckets = cv.infinity(points.group, L * nw * half, dev)

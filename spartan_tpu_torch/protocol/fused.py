@@ -19,9 +19,16 @@ the host route's.
 The JAX package's ``TAIL_W`` padding, which exists for XLA's compile cost,
 stays behind; its tail programs became the one-block tails.
 
+``sc1_phase_b`` and ``sc2_phase_b`` run B instances of one circuit with
+the same launches (counterparts of ``spartan_tpu/protocol/batched.py``'s
+``sc1_phase_b`` :328 and ``sc2_phase_b`` :408): each round one launch of
+the batch-axis kernel for the whole batch, each tail one block an
+instance, one upload and one copy back for the batch.
+
 On CPU tensors every launch is its plain PyTorch version
 (``sc1_round_plain`` and the others below, over ``ops/sumcheck``'s
-``PLAIN`` rounds); on CUDA tensors the wrappers launch the kernels or raise.
+``PLAIN`` rounds; a batch-axis launch, the single-instance plain version on
+each instance); on CUDA tensors the wrappers launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -107,39 +114,50 @@ def _ints(words: np.ndarray) -> List[int]:
 
 class _Buffer:
     """One int32 buffer for a phase, cut into named (count, 8) element
-    arrays: uploaded once at the start, copied to the host once at the end."""
+    arrays: uploaded once at the start, copied to the host once at the end.
+    With ``copies`` > 1, one copy of that layout an instance, one after the
+    other (the batch axis): ``size`` words apart."""
 
-    def __init__(self, parts):
+    def __init__(self, parts, copies: int = 1):
         self.offsets, n = {}, 0
         for name, count in parts:
             self.offsets[name] = (n, count)
             n += count * W
-        self.host = np.zeros(n, dtype=np.int32)
+        self.copies, self.size = copies, n
+        self.host = np.zeros((copies, n), dtype=np.int32)
 
     def set(self, name: str, words: np.ndarray) -> None:
+        """Words for every copy: (count, 8) for all alike, or one such
+        array a copy."""
         off, count = self.offsets[name]
-        self.host[off : off + count * W] = words.reshape(-1)
+        self.host[:, off : off + count * W] = np.asarray(words).reshape(-1, count * W)
 
     def upload(self, device: torch.device) -> None:
-        self.dev = _upload(self.host, device)
+        self.dev = _upload(self.host.reshape(-1), device)
 
     def view(self, name: str) -> torch.Tensor:
+        """Copy 0's array, (count, 8)."""
+        return self.views(name)[0]
+
+    def views(self, name: str) -> torch.Tensor:
+        """Every copy's array, (copies, count, 8), ``size`` words apart."""
         off, count = self.offsets[name]
-        return self.dev[off : off + count * W].view(count, W)
+        return self.dev.view(self.copies, self.size)[:, off : off + count * W].view(self.copies, count, W)
 
     def fetch(self) -> None:
         """The phase's one copy from the device to the host."""
-        self.host = self.dev.cpu().numpy()
+        self.host = self.dev.cpu().numpy().reshape(self.copies, self.size)
 
-    def get(self, name: str) -> np.ndarray:
+    def get(self, name: str, copy: int = 0) -> np.ndarray:
         off, count = self.offsets[name]
-        return self.host[off : off + count * W].reshape(count, W)
+        return self.host[copy, off : off + count * W].reshape(count, W)
 
 
 # ---------------------------------------------------------------------------
 # The rounds, the tails and their plain versions
 # ---------------------------------------------------------------------------
 
+MAX_GRID_B = 2048  # a batched round launch's whole grid (blocks x instances) at most: twice MAX_BLOCKS
 THREADS = 128  # a round kernel's block (csrc/sumcheck.cuh, kThreads): 32 pairs, four lanes a pair
 MAX_BLOCKS = 1024  # a round kernel's grid at most (kMaxBlocks)
 TAIL_PAIRS = 128  # the tail takes over at the first round of at most this many pairs (kTailPairs)
@@ -172,6 +190,12 @@ def _const_col(x: int, device) -> torch.Tensor:
 def round_blocks(pairs: int) -> int:
     """A round kernel's grid for ``pairs`` pairs."""
     return max(1, min(MAX_BLOCKS, -(-4 * pairs // THREADS)))
+
+
+def round_blocks_b(pairs: int, bsz: int) -> int:
+    """A batched round kernel's blocks an instance: ``round_blocks``, cut so
+    that the grid of ``bsz`` instances stays within MAX_GRID_B blocks."""
+    return max(1, min(round_blocks(pairs), MAX_GRID_B // bsz))
 
 
 def tail_start(log_n: int) -> int:
@@ -348,6 +372,116 @@ def sc2_tail(w, z, fold, state, evals, rs, r_mont) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The batch axis: B instances of one circuit a launch
+# ---------------------------------------------------------------------------
+#
+# Tables are (B, 8, n), each instance a contiguous (8, n) table; the weights
+# (B, 8, pairs) at any instance stride; every transcript array (B, ...) a
+# view of one ``_Buffer`` with a copy an instance, so one stride, ``ist``,
+# steps them all. The kernels get instance 0's pointers and the strides.
+
+
+def sc1_round_b_plain(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont):
+    """``sc1_round_b`` in PyTorch: ``sc1_round_plain`` on each instance."""
+    outs = [sc1_round_plain(az[b], bz[b], cz[b], s[b], fold, consts, tor_i[b], tor_next[b], pre[b], coef[b], state[b],
+                            evals[b], r_out[b], r_mont[b]) for b in range(az.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def prod2_round_b_plain(w, z, fold, state, evals, r_out, r_mont):
+    """``prod2_round_b`` in PyTorch: ``prod2_round_plain`` on each instance."""
+    outs = [prod2_round_plain(w[b], z[b], fold, state[b], evals[b], r_out[b], r_mont[b]) for b in range(w.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def sc1_tail_b_plain(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc) -> None:
+    """``sc1_tail_b`` in PyTorch: ``sc1_tail_plain`` on each instance."""
+    for b in range(az.shape[0]):
+        sc1_tail_plain(az[b], bz[b], cz[b], s_cat[b], fold, consts, tor[b], pre[b], coef[b], state[b], evals[b], rs[b],
+                       r_mont[b], vabc[b], rabc[b])
+
+
+def sc2_tail_b_plain(w, z, fold, state, evals, rs, r_mont) -> None:
+    """``sc2_tail_b`` in PyTorch: ``sc2_tail_plain`` on each instance."""
+    for b in range(w.shape[0]):
+        sc2_tail_plain(w[b], z[b], fold, state[b], evals[b], rs[b], r_mont[b])
+
+
+def _ist(*arrays) -> int:
+    """The one instance stride of the transcript arrays, in words (0 for a
+    single instance, whose arrays' strides say nothing)."""
+    if arrays[0].shape[0] == 1:
+        return 0
+    strides = {a.stride(0) for a in arrays}
+    if len(strides) != 1:
+        raise ValueError(f"the transcript arrays differ in instance stride: {sorted(strides)}")
+    return strides.pop()
+
+
+def _batch_tabs(tabs, fold: bool):
+    """A round's entering tables, contiguous, and the folded tables' outputs."""
+    tabs = [t.contiguous() for t in tabs]
+    bsz, pairs = tabs[0].shape[0], _pairs(tabs[0], fold)
+    outs = ([torch.empty((bsz, W, 2 * pairs), dtype=torch.int32, device=tabs[0].device) for _ in tabs] if fold
+            else tabs)
+    return tabs, outs, bsz, pairs
+
+
+def sc1_round_b(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, sums):
+    """K6 with its transcript step for B instances (``sc1_round_b_kernel``)
+    on CUDA tensors, one launch of (``round_blocks_b``, B) blocks;
+    ``sc1_round_b_plain`` on CPU ones."""
+    if az.device.type == "cpu":
+        return sc1_round_b_plain(az, bz, cz, s, fold, consts, tor_i, tor_next, pre, coef, state, evals, r_out,
+                                 r_mont)
+    tabs, outs, bsz, pairs = _batch_tabs((az, bz, cz), fold)
+    per = [tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr]
+    kernels.call("sc1_round_b", [*tabs, s[0], consts, *(x[0] for x in per), *(t[0] for t in outs), sums[0]],
+                 [pairs, int(fold), round_blocks_b(pairs, bsz), consts.shape[1], bsz, s.stride(0), _ist(*per, sums)],
+                 key=(pairs, int(fold), bsz))
+    return tuple(outs)
+
+
+def prod2_round_b(w, z, fold, state, evals, r_out, r_mont, ctr, sums):
+    """K7 with its transcript step for B instances (``prod2_round_b_kernel``)
+    on CUDA tensors; ``prod2_round_b_plain`` on CPU ones."""
+    if w.device.type == "cpu":
+        return prod2_round_b_plain(w, z, fold, state, evals, r_out, r_mont)
+    tabs, outs, bsz, pairs = _batch_tabs((w, z), fold)
+    per = [state, evals, r_out, r_mont, ctr]
+    kernels.call("prod2_round_b", [*tabs, *(x[0] for x in per), *(t[0] for t in outs), sums[0]],
+                 [pairs, int(fold), round_blocks_b(pairs, bsz), bsz, _ist(*per, sums)], key=(pairs, int(fold), bsz))
+    return tuple(outs)
+
+
+def sc1_tail_b(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc) -> None:
+    """The tail of sumcheck 1 with round 4 for B instances, a block each
+    (``sc1_tail_b_kernel``), on CUDA tensors; ``sc1_tail_b_plain`` on CPU
+    ones. s_cat: (B, L), each instance's weight tables one after the other."""
+    if az.device.type == "cpu":
+        return sc1_tail_b_plain(az, bz, cz, s_cat, fold, consts, tor, pre, coef, state, evals, rs, r_mont, vabc,
+                                rabc)
+    pairs0, bsz = _pairs(az, fold), az.shape[0]
+    per = [tor, pre, coef, state, evals, rs, r_mont, vabc, rabc]
+    kernels.call("sc1_tail_b", [az.contiguous(), bz.contiguous(), cz.contiguous(), s_cat[0], consts,
+                                *(x[0] for x in per)],
+                 [pairs0, int(fold), pairs0.bit_length(), consts.shape[1], bsz, s_cat.stride(0), _ist(*per)],
+                 key=(pairs0, int(fold), bsz))
+
+
+def sc2_tail_b(w, z, fold, state, evals, rs, r_mont) -> None:
+    """The tail of sumcheck 2 for B instances, a block each
+    (``sc2_tail_b_kernel``), on CUDA tensors; ``sc2_tail_b_plain`` on CPU
+    ones."""
+    if w.device.type == "cpu":
+        return sc2_tail_b_plain(w, z, fold, state, evals, rs, r_mont)
+    pairs0, bsz = _pairs(w, fold), w.shape[0]
+    per = [state, evals, rs, r_mont]
+    kernels.call("sc2_tail_b", [w.contiguous(), z.contiguous(), *(x[0] for x in per)],
+                 [pairs0, int(fold), pairs0.bit_length(), bsz, _ist(*per)], key=(pairs0, int(fold), bsz))
+
+
+# ---------------------------------------------------------------------------
 # The phases
 # ---------------------------------------------------------------------------
 
@@ -374,13 +508,7 @@ def sc1_phase(az, bz, cz, suffix, tor: List[int], state: bytes) -> Sc1Result:
     state: the chain state after the third prover message."""
     log_n = len(tor)
     d, i0 = log_n + 3, tail_start(log_n)
-    buf = _Buffer([("evals", log_n * d), ("rs", log_n), ("vabc", 3), ("rabc", 3), ("state", 1),
-                   ("pre", 1), ("r_mont", 1), ("tor", log_n), ("ctr", 1), ("sums", SUMS_ROWS),
-                   ("coef", 6 * d)])
-    buf.set("state", fsd.as_int32(fsd.state_to_words(state)).numpy())
-    buf.set("pre", _words([FR.r_mod]))  # 1 in Montgomery form
-    buf.set("tor", _words([t * FR.r_mod % FR.modulus for t in tor]))
-    buf.set("coef", _words(first_coef(tor[0], d - 1)))
+    buf = _sc1_buffer([tor], [state])
     dev = az.device
     buf.upload(dev)
     consts = emit_consts(log_n + 2, dev)
@@ -394,10 +522,34 @@ def sc1_phase(az, bz, cz, suffix, tor: List[int], state: bytes) -> Sc1Result:
     sc1_tail(az, bz, cz, s_cat, i0 > 0, consts, tor_m[i0:], pre, coef, st, evals[i0:], rs[i0:], r_mont,
              buf.view("vabc"), buf.view("rabc"))
     buf.fetch()
-    ev = _ints(buf.get("evals"))
-    return Sc1Result(evals=[ev[i * d : (i + 1) * d] for i in range(log_n)], rs=_ints(buf.get("rs")),
-                     vabc=_ints(buf.get("vabc")), rabc=_ints(buf.get("rabc")),
-                     state=fsd.words_to_state(buf.get("state")))
+    return _sc1_result(buf, log_n, 0)
+
+
+def _sc1_buffer(tors: List[List[int]], states: List[bytes]) -> _Buffer:
+    """Sumcheck 1's buffer, a copy an instance: its chain state, pre = 1,
+    tor and round 0's coefficients."""
+    log_n = len(tors[0])
+    d = log_n + 3
+    buf = _Buffer([("evals", log_n * d), ("rs", log_n), ("vabc", 3), ("rabc", 3), ("state", 1),
+                   ("pre", 1), ("r_mont", 1), ("tor", log_n), ("ctr", 1), ("sums", SUMS_ROWS),
+                   ("coef", 6 * d)], len(tors))
+    buf.set("state", _state_words(states))
+    buf.set("pre", _words([FR.r_mod]))  # 1 in Montgomery form
+    buf.set("tor", np.stack([_words([t * FR.r_mod % FR.modulus for t in tor]) for tor in tors]))
+    buf.set("coef", np.stack([_words(first_coef(tor[0], d - 1)) for tor in tors]))
+    return buf
+
+
+def _sc1_result(buf: _Buffer, log_n: int, b: int) -> Sc1Result:
+    d = log_n + 3
+    ev = _ints(buf.get("evals", b))
+    return Sc1Result(evals=[ev[i * d : (i + 1) * d] for i in range(log_n)], rs=_ints(buf.get("rs", b)),
+                     vabc=_ints(buf.get("vabc", b)), rabc=_ints(buf.get("rabc", b)),
+                     state=fsd.words_to_state(buf.get("state", b)))
+
+
+def _state_words(states: List[bytes]) -> np.ndarray:
+    return np.stack([fsd.as_int32(fsd.state_to_words(s)).numpy() for s in states])
 
 
 def sc2_phase(w, z, state: bytes) -> Sc2Result:
@@ -405,9 +557,7 @@ def sc2_phase(w, z, state: bytes) -> Sc2Result:
     tables; state: the chain state after the fifth prover message."""
     log_n = w.shape[-1].bit_length() - 1
     i0 = tail_start(log_n)
-    buf = _Buffer([("evals", 3 * log_n), ("rs", log_n), ("state", 1), ("r_mont", 1), ("ctr", 1),
-                   ("sums", SUMS_ROWS)])
-    buf.set("state", fsd.as_int32(fsd.state_to_words(state)).numpy())
+    buf = _sc2_buffer(log_n, [state])
     buf.upload(w.device)
     evals, rs = buf.view("evals").view(log_n, 3, W), buf.view("rs")
     st, r_mont = buf.view("state"), buf.view("r_mont")
@@ -415,6 +565,65 @@ def sc2_phase(w, z, state: bytes) -> Sc2Result:
         w, z = prod2_round(w, z, i > 0, st, evals[i], rs[i], r_mont, buf.view("ctr"), buf.view("sums"))
     sc2_tail(w, z, i0 > 0, st, evals[i0:], rs[i0:], r_mont)
     buf.fetch()
-    ev = _ints(buf.get("evals"))
-    return Sc2Result(evals=[ev[3 * i : 3 * (i + 1)] for i in range(log_n)], rs=_ints(buf.get("rs")),
-                     state=fsd.words_to_state(buf.get("state")))
+    return _sc2_result(buf, log_n, 0)
+
+
+def _sc2_buffer(log_n: int, states: List[bytes]) -> _Buffer:
+    buf = _Buffer([("evals", 3 * log_n), ("rs", log_n), ("state", 1), ("r_mont", 1), ("ctr", 1),
+                   ("sums", SUMS_ROWS)], len(states))
+    buf.set("state", _state_words(states))
+    return buf
+
+
+def _sc2_result(buf: _Buffer, log_n: int, b: int) -> Sc2Result:
+    ev = _ints(buf.get("evals", b))
+    return Sc2Result(evals=[ev[3 * i : 3 * (i + 1)] for i in range(log_n)], rs=_ints(buf.get("rs", b)),
+                     state=fsd.words_to_state(buf.get("state", b)))
+
+
+def sc1_phase_b(az, bz, cz, suffix, tors: List[List[int]], states: List[bytes]) -> List[Sc1Result]:
+    """``sc1_phase`` for B instances of one circuit, the launches shared:
+    each round one ``sc1_round_b`` launch and the tail one ``sc1_tail_b``,
+    whatever B is; one upload starts the phase and one copy ends it.
+
+    az, bz, cz: (B, 8, n) Montgomery tables; suffix: the eq suffix tables
+    of each instance's tor, (B, 8, 2^(log_n - j)) each
+    (``mle.eq_suffix_tables_b``); tors: B lists of the log_n challenges;
+    states: B chain states. Returns each instance's result."""
+    bsz, log_n = az.shape[0], len(tors[0])
+    if log_n < 2:
+        raise ValueError("batched proving requires log_n >= 2")
+    d, i0 = log_n + 3, tail_start(log_n)
+    buf = _sc1_buffer(tors, states)
+    buf.upload(az.device)
+    consts = emit_consts(log_n + 2, az.device)
+    evals, rs, tor_m = buf.views("evals").view(bsz, log_n, d, W), buf.views("rs"), buf.views("tor")
+    pre, st, r_mont = buf.views("pre"), buf.views("state"), buf.views("r_mont")
+    coef = buf.views("coef").view(bsz, 6, d, W)
+    for i in range(i0):
+        az, bz, cz = sc1_round_b(az, bz, cz, suffix[i + 1], i > 0, consts, tor_m[:, i], tor_m[:, i + 1], pre, coef,
+                                 st, evals[:, i], rs[:, i], r_mont, buf.views("ctr"), buf.views("sums"))
+    s_cat = torch.cat([suffix[j].reshape(bsz, -1) for j in range(i0 + 1, log_n + 1)], dim=1)
+    sc1_tail_b(az, bz, cz, s_cat, i0 > 0, consts, tor_m[:, i0:], pre, coef, st, evals[:, i0:], rs[:, i0:], r_mont,
+               buf.views("vabc"), buf.views("rabc"))
+    buf.fetch()
+    return [_sc1_result(buf, log_n, b) for b in range(bsz)]
+
+
+def sc2_phase_b(w, z, states: List[bytes]) -> List[Sc2Result]:
+    """``sc2_phase`` for B instances: w, z (B, 8, n) Montgomery tables,
+    states the B chain states; each round one ``prod2_round_b`` launch and
+    the tail one ``sc2_tail_b``."""
+    bsz, log_n = w.shape[0], w.shape[-1].bit_length() - 1
+    if log_n < 2:
+        raise ValueError("batched proving requires log_n >= 2")
+    i0 = tail_start(log_n)
+    buf = _sc2_buffer(log_n, states)
+    buf.upload(w.device)
+    evals, rs = buf.views("evals").view(bsz, log_n, 3, W), buf.views("rs")
+    st, r_mont = buf.views("state"), buf.views("r_mont")
+    for i in range(i0):
+        w, z = prod2_round_b(w, z, i > 0, st, evals[:, i], rs[:, i], r_mont, buf.views("ctr"), buf.views("sums"))
+    sc2_tail_b(w, z, i0 > 0, st, evals[:, i0:], rs[:, i0:], r_mont)
+    buf.fetch()
+    return [_sc2_result(buf, log_n, b) for b in range(bsz)]

@@ -1,7 +1,8 @@
 // Host shim for the CUDA sources of spartan_tpu_torch/csrc: compiled with
 // g++ -include, it runs a kernel on CPU threads (one std::thread per CUDA
-// thread, one block at a time) so that the CPU tests can hold the kernels'
-// own arithmetic against the plain PyTorch versions. Shuffles, ballots and
+// thread, one block at a time, grids of one or two dimensions) so that the
+// CPU tests can hold the kernels' own arithmetic against the plain PyTorch
+// versions. Shuffles, ballots and
 // __syncwarp are barriers over the warp or the team; the device code's
 // carry flag is fp_cc.cuh's host branch. Blocks run one after another, so a
 // ticket counter taken with atomicAdd makes the last block the last to run.
@@ -105,18 +106,35 @@ inline uint32_t __ballot_sync(unsigned, int pred) {
   return r;
 }
 
-// Run fn, a kernel call, as every thread of every block.
-inline void shim_launch(unsigned blocks, unsigned threads, const std::function<void()>& fn) {
+// Run fn, a kernel call, as every thread of every block of a (gx, gy) grid,
+// one block at a time: blockIdx.x outer and blockIdx.y inner, so the blocks
+// of different y (a batch's instances) interleave, and state that one y's
+// blocks must keep to themselves (a ticket counter, partial sums) shows
+// when it is shared.
+inline void shim_launch2(unsigned gx, unsigned gy, unsigned threads, const std::function<void()>& fn) {
   blockDim.x = threads;
-  gridDim.x = blocks;
-  for (unsigned b = 0; b < blocks; ++b) {
-    ShimBlock blk;
-    blk.nthreads = threads;
-    blk.block_bar.reset(new std::barrier<>(threads));
-    g_block = &blk;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] { blockIdx.x = b; threadIdx.x = t; fn(); });
-    for (auto& th : ts) th.join();
+  gridDim.x = gx;
+  gridDim.y = gy;
+  for (unsigned bx = 0; bx < gx; ++bx) {
+    for (unsigned by = 0; by < gy; ++by) {
+      ShimBlock blk;
+      blk.nthreads = threads;
+      blk.block_bar.reset(new std::barrier<>(threads));
+      g_block = &blk;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < threads; ++t)
+        ts.emplace_back([&, bx, by, t] {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          threadIdx.x = t;
+          fn();
+        });
+      for (auto& th : ts) th.join();
+    }
   }
+}
+
+// A one-dimensional grid of `blocks` blocks.
+inline void shim_launch(unsigned blocks, unsigned threads, const std::function<void()>& fn) {
+  shim_launch2(blocks, 1, threads, fn);
 }

@@ -9,11 +9,14 @@ Blake2s of the transcript step against ``hashlib``, its sampler against the
 host stream, the unreduced sums and their reduction against Python integers,
 the round kernels K6 and K7 with their transcript step (over one to three
 blocks, so the partials and the last block's ticket run) and the one-block
-tails against their plain versions. This holds the kernels' own arithmetic, tables and edge rules on
-the CPU. Every ``.cu`` file, entry points and launches included, also goes
-through ``g++ -fsyntax-only`` with the CUDA runtime stubbed, which finds a
-C++ error before a build on the card; whether nvcc accepts them, and how
-fast they run, only ``chip_smoke.py`` on the card can say.
+tails against their plain versions, and the same kernels on a batch axis
+(2-D grids of 1 to 3 blocks by 2 to 3 instances, the shim interleaving the
+instances' blocks; tails a block an instance). This holds the kernels'
+own arithmetic, tables and edge rules on the CPU. Every ``.cu`` file,
+entry points and launches included, also goes through ``g++
+-fsyntax-only`` with the CUDA runtime stubbed, which finds a C++ error
+before a build on the card; whether nvcc accepts them, and how fast they
+run, only ``chip_smoke.py`` on the card can say.
 """
 
 import ctypes
@@ -131,6 +134,44 @@ extern "C" int host_tail(int sc1, void* const* t, int64_t pairs0, int fold, int 
   return 0;
 }
 
+// The batch axis (sumcheck.cuh's *_b kernels): a round launch over a
+// (blocks, B) grid, a tail over B blocks; t as above, instance 0's pointers.
+extern "C" int host_round_b(int sc1, void* const* t, int64_t pairs, int fold, int blocks, int D, int B,
+                            int64_t s_stride, int64_t ist) {
+  using U = uint32_t*;
+  using W = unsigned long long*;
+  using C = const uint32_t*;
+  if (sc1)
+    shim_launch2(blocks, B, sck::kThreads, [&] {
+      sc1_round_b_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), C(t[6]), U(t[7]), U(t[8]), U(t[9]),
+                         U(t[10]), U(t[11]), U(t[12]), U(t[13]), U(t[14]), U(t[15]), U(t[16]), W(t[17]), pairs, fold,
+                         D, s_stride, ist);
+    });
+  else
+    shim_launch2(blocks, B, sck::kThreads, [&] {
+      prod2_round_b_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), U(t[6]), U(t[7]), U(t[8]),
+                           W(t[9]), pairs, fold, ist);
+    });
+  return 0;
+}
+
+extern "C" int host_tail_b(int sc1, void* const* t, int64_t pairs0, int fold, int rounds, int D, int B,
+                           int64_t s_stride, int64_t ist) {
+  using U = uint32_t*;
+  using C = const uint32_t*;
+  const unsigned threads = (unsigned)std::min<int64_t>(sck::kTailThreads, std::max<int64_t>(32, 4 * pairs0));
+  if (sc1)
+    shim_launch(B, threads, [&] {
+      sc1_tail_b_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), U(t[6]), C(t[7]), U(t[8]), U(t[9]),
+                        U(t[10]), U(t[11]), U(t[12]), U(t[13]), pairs0, fold, rounds, D, s_stride, ist);
+    });
+  else
+    shim_launch(B, threads, [&] {
+      sc2_tail_b_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), pairs0, fold, rounds, ist);
+    });
+  return 0;
+}
+
 // The unreduced sum (fr_sum.cuh) of n canonical elements (rows of 8 words),
 // a warp's lanes taking every 32nd and then summed across the warp, into
 // acc (9 words), and its reduction into fr (8 words): acc_mul with y = R mod
@@ -239,6 +280,7 @@ def lib(tmp_path_factory):
     lib.host_sample_fr.argtypes = [vp, ctypes.c_uint32, vp]
     lib.host_sample_fr.restype = ctypes.c_uint32
     lib.host_round.argtypes = lib.host_tail.argtypes = [i32, vp, i64, i32, i32, i32]
+    lib.host_round_b.argtypes = lib.host_tail_b.argtypes = [i32, vp, i64, i32, i32, i32, i32, i64, i64]
     lib.host_acc_sum.argtypes = [vp, i64, vp, vp]
     lib.host_mod_r9.argtypes = [vp, vp]
     return lib
@@ -663,6 +705,126 @@ def test_tail_kernel_sources_match_plain(lib, kernel, shape):
     kern, ref, _ = _run_both(kernel_call, plain, args)
     for k in args:
         assert torch.equal(kern[k], ref[k]), k
+
+
+def _batch_args(kernel: str, pairs: int, fold: int, bsz: int, log_n: int, seed: int):
+    """Seeded arguments of a batched round launch (pairs pairs) or tail
+    (from pairs down) for bsz instances, as protocol.fused's phases lay them
+    out: tables (B, 8, n); the weights (B, 8, pairs) at an instance stride
+    of their own, wider than a table; every transcript array a view of one
+    buffer with a copy an instance (instance stride ist). Returns (tables,
+    the weights or None, the buffer, its views by name, D, rounds)."""
+    from spartan_tpu_torch.protocol import fused
+
+    rng = random.Random(seed)
+    sc1, tail = kernel.startswith("sc1"), "tail" in kernel
+    nt, d = (3, log_n + 3) if sc1 else (2, 3)
+    rounds = pairs.bit_length() if tail else 1
+    width = (4 if fold else 2) * pairs
+    tabs = [torch.stack([_fr_table(rng, width) for _ in range(bsz)]) for _ in range(nt)]
+    s = None
+    if sc1:
+        n_s = 8 * (2 * pairs - 1) if tail else 8 * pairs
+        wide = torch.zeros((bsz, n_s + 24), dtype=torch.int32)
+        for b in range(bsz):
+            wide[b, :n_s] = torch.cat([_fr_table(rng, pairs >> k).reshape(-1) for k in range(rounds)])
+        s = wide[:, :n_s] if tail else wide[:, :n_s].view(bsz, 8, pairs)
+    parts = [("state", 1), ("evals", rounds * d), ("rs", rounds), ("r_mont", 1), ("ctr", 1),
+             ("sums", fused.SUMS_ROWS)]
+    if sc1:
+        parts += [("tor", rounds + 1), ("pre", 1), ("coef", 6 * d), ("vabc", 3), ("rabc", 3)]
+    buf = fused._Buffer(parts, bsz)
+    for name in ("state", "r_mont") + (("tor", "pre") if sc1 else ()):
+        count = buf.offsets[name][1]
+        buf.set(name, np.stack([_fr_table(rng, count).t().numpy() for _ in range(bsz)]))
+    if sc1:
+        buf.set("coef", np.stack([_coef(rng, d).numpy() for _ in range(bsz)]))
+    buf.upload(torch.device("cpu"))
+    v = {name: buf.views(name) for name in buf.offsets}
+    v["evals"] = v["evals"].view(bsz, rounds, d, 8)
+    if sc1:
+        v["coef"] = v["coef"].view(bsz, 6, d, 8)
+    return tabs, s, buf, v, d, rounds
+
+
+# (pairs, fold, B): round launches of 1 to 3 blocks an instance (32 pairs a
+# block) over 2 and 3 instances, so each instance's partials, ticket and
+# last block run with other instances' blocks between them
+ROUND_B_SHAPES = [(16, 0, 3), (64, 1, 2), (96, 1, 3)]
+
+
+@pytest.mark.parametrize("shape", ROUND_B_SHAPES, ids=lambda s: "p{}-f{}-b{}".format(*s))
+@pytest.mark.parametrize("kernel", ["sc1_round_b", "prod2_round_b"])
+def test_batched_round_kernel_sources_match_plain(lib, kernel, shape):
+    """The batch axis of K6 and K7 with their transcript step: a (blocks, B)
+    grid, blocks of different instances interleaved by the shim, against
+    protocol.fused's plain versions on each instance. Every instance's
+    tables, evaluations, challenge, pre, coefficients and chain state, and
+    its ticket counter and sums back at 0: a counter or sums shared across
+    instances would hand the transcript step to the wrong block."""
+    from spartan_tpu_torch.protocol import fused
+
+    pairs, fold, bsz = shape
+    sc1 = kernel == "sc1_round_b"
+    log_n = 5
+    blocks = fused.round_blocks_b(pairs, bsz)
+    assert blocks == (pairs + 31) // 32 and blocks * bsz <= fused.MAX_GRID_B
+    tabs, s, kbuf, kv, d, _r = _batch_args(kernel, pairs, fold, bsz, log_n, pairs * 11 + fold)
+    _t, _s, pbuf, pv, _d, _r = _batch_args(kernel, pairs, fold, bsz, log_n, pairs * 11 + fold)
+    consts = fused.emit_consts(log_n + 2, "cpu")
+    outs = [torch.zeros((bsz, 8, 2 * pairs), dtype=torch.int32) for _ in tabs] if fold else tabs
+    st = [kv["state"][0], kv["evals"][0, 0], kv["rs"][0, 0], kv["r_mont"][0], kv["ctr"][0]]
+    if sc1:
+        ptrs = [*tabs, s[0], consts, kv["tor"][0, 0], kv["tor"][0, 1], kv["pre"][0], kv["coef"][0], *st, *outs,
+                kv["sums"]]
+    else:
+        ptrs = [*tabs, *st, *outs, kv["sums"]]
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    s_stride = s.stride(0) if sc1 else 0
+    assert lib.host_round_b(sc1, arr, pairs, fold, blocks, d, bsz, s_stride, kbuf.size) == 0
+    if sc1:
+        want = fused.sc1_round_b_plain(*tabs, s, bool(fold), consts, pv["tor"][:, 0], pv["tor"][:, 1], pv["pre"],
+                                       pv["coef"], pv["state"], pv["evals"][:, 0], pv["rs"][:, 0], pv["r_mont"])
+    else:
+        want = fused.prod2_round_b_plain(*tabs, bool(fold), pv["state"], pv["evals"][:, 0], pv["rs"][:, 0],
+                                         pv["r_mont"])
+    assert torch.equal(kbuf.dev, pbuf.dev)  # every instance's transcript arrays; ctr and sums at 0
+    assert not kv["ctr"].any() and not kv["sums"].any()
+    if fold:
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+# (pairs0, fold): the tails from 4 pairs and from 16 without the fold, at B = 2
+TAIL_B_SHAPES = [(4, 1), (16, 0)]
+
+
+@pytest.mark.parametrize("shape", TAIL_B_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
+@pytest.mark.parametrize("kernel", ["sc1_tail_b", "sc2_tail_b"])
+def test_batched_tail_kernel_sources_match_plain(lib, kernel, shape):
+    """The batch axis of the one-block tails: a block an instance, against
+    protocol.fused's plain tails on each instance; every round's
+    evaluations and challenge, r_mont, pre, the chain state and round 4's
+    values of every instance."""
+    from spartan_tpu_torch.protocol import fused
+
+    pairs0, fold = shape
+    bsz, log_n, sc1 = 2, 6, kernel == "sc1_tail_b"
+    tabs, s, kbuf, kv, d, rounds = _batch_args(kernel, pairs0, fold, bsz, log_n, pairs0 * 13 + fold)
+    _t, _s, pbuf, pv, _d, _r = _batch_args(kernel, pairs0, fold, bsz, log_n, pairs0 * 13 + fold)
+    consts = fused.emit_consts(log_n + 2, "cpu")
+    if sc1:
+        ptrs = [*tabs, s[0], consts, kv["tor"][0], kv["pre"][0], kv["coef"][0], kv["state"][0], kv["evals"][0],
+                kv["rs"][0], kv["r_mont"][0], kv["vabc"][0], kv["rabc"][0]]
+    else:
+        ptrs = [*tabs, kv["state"][0], kv["evals"][0], kv["rs"][0], kv["r_mont"][0]]
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    assert lib.host_tail_b(sc1, arr, pairs0, fold, rounds, d, bsz, s.stride(0) if sc1 else 0, kbuf.size) == 0
+    if sc1:
+        fused.sc1_tail_b_plain(*tabs, s, bool(fold), consts, pv["tor"][:, :rounds], pv["pre"], pv["coef"],
+                               pv["state"], pv["evals"], pv["rs"], pv["r_mont"], pv["vabc"], pv["rabc"])
+    else:
+        fused.sc2_tail_b_plain(*tabs, bool(fold), pv["state"], pv["evals"], pv["rs"], pv["r_mont"])
+    assert torch.equal(kbuf.dev, pbuf.dev)
 
 
 def _words_of(x: int, n: int) -> np.ndarray:

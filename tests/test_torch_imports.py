@@ -34,7 +34,7 @@ def _all_modules():
 def test_port_imports_without_jax():
     mods = _all_modules()
     assert {"spartan_tpu_torch.ops.field", "spartan_tpu_torch.protocol.argument",
-            "spartan_tpu_torch.kernels"} <= set(mods)
+            "spartan_tpu_torch.protocol.batched", "spartan_tpu_torch.kernels"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -115,6 +115,34 @@ def test_phase_kernel_table_names_sources():
     assert not set(kernels.PHASE_KERNELS) & set(kernels.KERNELS)
 
 
+def test_batch_kernels_are_phase_kernels_chip_smoke_checks():
+    """The batch-axis sumcheck kernels are registered phase kernels, each
+    the batch axis of one single-instance kernel, and chip_smoke.py holds
+    each of them against its plain version (BATCH_PATH)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    assert set(chip_smoke.BATCH_PATH) == {k for k in kernels.PHASE_KERNELS if k.endswith("_b")}
+    assert {k[:-2] for k in chip_smoke.BATCH_PATH} == set(chip_smoke.PHASE_PATH)
+    assert all(kernels.PHASE_KERNELS[k][1].startswith("spartan_tpu/protocol/batched.py:") for k in chip_smoke.BATCH_PATH)
+
+
+@pytest.mark.gpu
+def test_batch_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on one: python -m pytest --noconftest tests/test_torch_imports.py -m gpu")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    old = chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B
+    chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B = 10, (1, 3), (3,), 3
+    try:
+        rows = chip_smoke.phase_batch_kernels(torch.device("cuda", 0), chip_smoke.Card())
+    finally:
+        chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B = old
+    assert [r["name"] for r in rows] == list(chip_smoke.BATCH_PATH)
+
+
 def test_fused_kernel_table_names_sources():
     """The same for the fused K1 and K2 entry points, none of which
     replaces a Pallas kernel; chip_smoke.py checks and times each of them."""
@@ -162,7 +190,8 @@ def test_phase_kernels_match_plain_on_card():
     finally:
         chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = old
     assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH)
-    assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch", "sc1_round_stamped"}
+    assert set(chip_smoke.PHASE_PATH) == (set(kernels.PHASE_KERNELS) - {"blake2s_batch", "sc1_round_stamped"}
+                                          - set(chip_smoke.BATCH_PATH))
 
 
 @pytest.mark.gpu

@@ -82,6 +82,17 @@ exits non-zero:
    every width the batched prove launches them at, and times them at 1, 8
    and 64 beside their bound.
 
+7. the sharded prove (``parallel/sharded_prove.py``): phase 4's instance
+   on its pk and pp at D = 2 and 4 shards on the card (all on cuda:0, or
+   one card a shard where there are D); the proof's SHA-256 must equal
+   ``tests/fixtures/proof_2e16_seed0.sha256``, verify must accept it and
+   reject it with one opening byte changed, every kernel of the path must
+   launch (printed by entry point); the spans "Prove 1 (sharded)" ..
+   "Prove 6 (sharded)" and the warm wall time beside phase 4's two routes
+   on the same keys; then ``save_keys`` of those keys into a temporary
+   directory and ``load_keys`` onto the card (times and the file's size):
+   a prove with the reloaded keys must give the same SHA-256.
+
 The line before the last is a JSON object with one entry per kernel entry
 point (those whose work moved into the fused kernels, launched in no step
 of phase 4's run, carry ``"main_path": false``; the batch-axis kernels'
@@ -1549,7 +1560,7 @@ def phase_full(dev, card: Card, log_n: int = 16):
     wrong_v[0] = (wrong_v[0] + 1)
     how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), wrong_v, proof, vp))
     print(f"full: wrong public input -> {how}", flush=True)
-    return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp), (pk, pp, vp)
+    return launches, shapes, lambda: MLArgumentForR1CS.prove(pk, v, w, pp), (pk, pp, vp), (v, w)
 
 
 def _witness(job):
@@ -1663,6 +1674,103 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one at the end "
               "of the phase")
     return launches
+
+
+SHARDED_D = (2, 4)  # shards of phase 7's sharded proves
+SHARDED_SPANS = ("Prove 1 (sharded)", "Prove 2 (sharded)", "Prove 3 (sharded)", "Prove Sumcheck 1 (sharded)",
+                 "Prove 4 (sharded)", "Prove 5 (sharded)", "Prove Sumcheck 2 (sharded)", "Prove 6 (sharded)")
+
+
+def phase_sharded(dev, keys, instance, prove, log_n: int = 16) -> None:
+    """The sharded prove (``parallel/sharded_prove.py``) of phase 4's
+    instance on its pk and pp at D = 2 and 4 shards, on the card
+    (``make_mesh(devices=[dev] * D)``, or one card a shard where there are
+    D): the proof's SHA-256 must equal PROOF_SHA, verify must accept it and
+    reject it with one opening byte changed; every kernel of the path must
+    launch (counts set to 0 just before the first prove of each D and read
+    just after). Prints the launches by entry point, the spans and the warm
+    wall time beside phase 4's routes on the same keys. Then key
+    persistence: save_keys of phase 4's keys into a temporary directory,
+    load_keys onto the card, a prove with the reloaded keys must give the
+    same SHA-256; prints the save and load times and the file's size."""
+    import tempfile
+
+    from spartan_tpu_torch import kernels, timers
+    from spartan_tpu_torch.commitment import persist
+    from spartan_tpu_torch.parallel import sharded
+    from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
+    from spartan_tpu_torch.protocol.proof import Proof
+
+    t_phase = time.perf_counter()
+    pk, pp, vp = keys
+    v, w = instance
+    with open(PROOF_SHA) as fh:
+        want_sha = fh.read().split()[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def warm(fn, runs: int = 3):
+        walls = []
+        for _ in range(runs):
+            timers.reset()
+            walls.append(timed(fn)[1])
+        return walls
+
+    base = {"device route": warm(prove), "host loop": warm(host_loop(prove))}
+    print(card_line(), flush=True)
+    print("sharded: phase 4's prove on the same keys, warm wall s "
+          + json.dumps({k: [round(x, 4) for x in ws] for k, ws in base.items()}), flush=True)
+    path = [k for k in (*kernels.KERNELS, *FUSED_PATH) if k not in MOVED]
+    for d in SHARDED_D:
+        devices = [f"cuda:{i}" for i in range(d)] if torch.cuda.device_count() >= d else [dev] * d
+        mesh = sharded.make_mesh(devices=devices)
+        run = lambda: MLArgumentForR1CS.prove(pk, v, w, pp, mesh=mesh)  # noqa: E731
+        timers.reset()
+        kernels.reset_counts()
+        proof, cold_s = timed(run)
+        launches = {k: m for k, m in sorted(kernels.LAUNCHES.items()) if m}
+        cold_spans = dict(timers.SPANS)
+        data = proof.serialize()
+        sha = hashlib.sha256(data).hexdigest()
+        check(sha == want_sha, f"the sharded (D = {d}) 2^16 proof's SHA-256 {sha} differs from "
+              f"{os.path.basename(PROOF_SHA)}")
+        check(MLArgumentForR1CS.verify(pk.vk(), v, proof, vp) is True, f"verify rejected the sharded (D = {d}) proof")
+        bad = bytearray(data)
+        bad[len(bad) - log_n * 96 + 95] ^= 0x80  # the y-sign flag of the last opening's first point
+        how = _rejects(lambda: MLArgumentForR1CS.verify(pk.vk(), v, Proof.deserialize(bytes(bad)), vp))
+        missing = [k for k in path if not launches.get(k)]
+        check(not missing, f"kernels {missing} never launched in the sharded (D = {d}) prove")
+        check(not any(launches.get(k) for k in PHASE_PATH), "the sharded prove launched the device transcript's kernels")
+        check(all(k in cold_spans for k in SHARDED_SPANS), f"the sharded prove's spans are missing: {list(cold_spans)}")
+        walls = warm(run)
+        print(f"sharded: D = {d} on {[str(x) for x in mesh.devices]}: SHA-256 {sha} equals "
+              f"{os.path.basename(PROOF_SHA)}; verify accepts; tampered opening -> {how}", flush=True)
+        print(f"sharded: D = {d} launches by entry point " + json.dumps(launches), flush=True)
+        print(f"sharded: D = {d} prove wall cold {cold_s:.4f} s, warm " + json.dumps([round(x, 4) for x in walls])
+              + f" s; phase 4's warm min: device route {min(base['device route']):.4f} s, host loop "
+              f"{min(base['host loop']):.4f} s", flush=True)
+        print(f"sharded: D = {d} spans of the last warm prove "
+              + json.dumps({k: round(x, 4) for k, x in timers.SPANS.items()}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        file = os.path.join(tmp, "keys.npz")
+        _none, save_s = timed(lambda: persist.save_keys(file, pp, vp))
+        size = os.path.getsize(file)
+        (pp2, vp2), load_s = timed(lambda: persist.load_keys(file))
+    check(pp2.device == dev and vp2 == vp, "load_keys did not put the keys on the card unchanged")
+    tables = lambda q: [pb.data for pb in q.powers_of_g + q.powers_of_h + q.powers_of_h_comb]  # noqa: E731
+    check(all(torch.equal(a, b) for a, b in zip(tables(pp2), tables(pp))), "reloaded keys differ from the saved ones")
+    proof, prove_s = timed(lambda: MLArgumentForR1CS.prove(pk, v, w, pp2))
+    sha = hashlib.sha256(proof.serialize()).hexdigest()
+    check(sha == want_sha, f"the prove with reloaded keys gave SHA-256 {sha}, not {os.path.basename(PROOF_SHA)}'s")
+    print(f"persist: save_keys {save_s:.3f} s, file {size} bytes ({size / 2**20:.1f} MiB), load_keys onto the card "
+          f"{load_s:.3f} s; the prove with the reloaded keys ({prove_s:.3f} s) gives SHA-256 {sha}, equal", flush=True)
+    print(f"sharded: phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 SUMCHECK_SPANS = ("Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)", "Prove Sumcheck 1", "Prove 4",
@@ -1838,7 +1946,7 @@ def main() -> int:
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
     phase_jax_phases(dev)
-    launches, shapes, prove, keys = phase_full(dev, card)
+    launches, shapes, prove, keys, instance = phase_full(dev, card)
     _fr_mul_in_prove(rows, shapes["fr_mul"])
     _fp_sub_in_prove(card, shapes["fp_sub"], dev)
     inside = phase_profile(prove, "device route")
@@ -1847,6 +1955,7 @@ def main() -> int:
               "at the end of the phase")
     phase_profile(host_loop(prove), "host loop", warm=3)
     batch_launches = phase_batched(dev, card, keys)
+    phase_sharded(dev, keys, instance, prove)
     for row in rows:
         row["launches"] = batch_launches.get(row["name"], 0) if row["name"] in BATCH_PATH else launches[row["name"]]
         row["main_path"] = row["name"] not in MOVED or row["launches"] > 0

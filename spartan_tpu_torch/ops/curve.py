@@ -91,10 +91,19 @@ class _G1Field:
     def sub(self, a, b):
         return self.f.sub(a, b)
 
+    AXIS = 1  # where muls and adds stack independent operations
+
     def muls(self, *pairs):
-        lhs = torch.stack([a for a, _ in pairs], dim=1)
-        rhs = torch.stack([b for _, b in pairs], dim=1)
-        return self.f.mul(lhs, rhs).unbind(1)
+        return self._batched(self.f.mul, pairs)
+
+    def adds(self, *pairs):
+        """Independent sums as one call (the plain versions' cost is per call)."""
+        return self._batched(self.f.add, pairs)
+
+    def _batched(self, op, pairs):
+        lhs = torch.stack([a for a, _ in pairs], dim=self.AXIS)
+        rhs = torch.stack([b for _, b in pairs], dim=self.AXIS)
+        return op(lhs, rhs).unbind(self.AXIS)
 
     def is_zero(self, a):
         return (a == 0).reshape(-1, a.shape[-1]).all(0)
@@ -115,10 +124,10 @@ class _G2Field(_G1Field):
     def sub(self, a, b):
         return fp2.sub2(a, b, self.f)
 
+    AXIS = 2
+
     def muls(self, *pairs):
-        lhs = torch.stack([a for a, _ in pairs], dim=2)
-        rhs = torch.stack([b for _, b in pairs], dim=2)
-        return fp2.mul2(lhs, rhs, self.f).unbind(2)
+        return self._batched(lambda a, b: fp2.mul2(a, b, self.f), pairs)
 
     def coords(self, data):
         v = data.permute(1, 0, 2)  # (12, 6, N)
@@ -137,15 +146,16 @@ def _dbl(f, a):
 
 def _double_coords(f, x, y, z):
     a, b = f.muls((x, x), (y, y))
-    xb = f.add(x, b)
+    xb, a2 = f.adds((x, b), (a, a))
     c, t = f.muls((b, b), (xb, xb))
-    d = _dbl(f, f.sub(t, f.add(a, c)))
-    e = f.add(_dbl(f, a), a)
+    ac, e = f.adds((a, c), (a2, a))
+    d = _dbl(f, f.sub(t, ac))
     g, yz = f.muls((e, e), (y, z))
-    x3 = f.sub(g, _dbl(f, d))
-    c8 = _dbl(f, _dbl(f, _dbl(f, c)))
+    d2, c2 = f.adds((d, d), (c, c))
+    x3 = f.sub(g, d2)
+    c4, z3 = f.adds((c2, c2), (yz, yz))
     (ed,) = f.muls((e, f.sub(d, x3)))
-    return x3, f.sub(ed, c8), _dbl(f, yz)
+    return x3, f.sub(ed, _dbl(f, c4)), z3
 
 
 def _resolve(f, p, q, x3, y3, z3, h, r):
@@ -176,8 +186,32 @@ def double_plain(p: PointBatch, k: int = 1) -> PointBatch:
     return PointBatch(data, p.group)
 
 
+def _finite_lanes(formula, p: PointBatch, q: PointBatch) -> PointBatch:
+    """``formula`` on the lanes where neither point is infinity; P = inf
+    gives Q and Q = inf gives P, as ``_resolve`` does, without evaluating
+    the formula there (an MSM's buckets are mostly empty)."""
+    p_inf, q_inf = is_infinity(p), is_infinity(q)
+    finite = ~(p_inf | q_inf)
+    if bool(finite.all()):
+        return formula(p, q)
+    out = torch.where(p_inf, q.data, p.data)
+    lanes = torch.nonzero(finite).squeeze(1)
+    if lanes.numel():
+        out[..., lanes] = formula(p.take(lanes), q.take(lanes)).data
+    return PointBatch(out, p.group)
+
+
 def add_plain(p: PointBatch, q: PointBatch) -> PointBatch:
     """Full Jacobian add, complete by the edge rules."""
+    return _finite_lanes(_add_formula, p, q)
+
+
+def add_mixed_plain(p: PointBatch, q: PointBatch) -> PointBatch:
+    """Jacobian P + affine-encoded Q (Z2 = 1, or 0 for infinity)."""
+    return _finite_lanes(_add_mixed_formula, p, q)
+
+
+def _add_formula(p: PointBatch, q: PointBatch) -> PointBatch:
     f = _PLAIN[p.group]
     x1, y1, z1 = f.coords(p.data)
     x2, y2, z2 = f.coords(q.data)
@@ -193,8 +227,7 @@ def add_plain(p: PointBatch, q: PointBatch) -> PointBatch:
     return _resolve(f, p, q, x3, f.sub(ya, yb), z3, h, r)
 
 
-def add_mixed_plain(p: PointBatch, q: PointBatch) -> PointBatch:
-    """Jacobian P + affine-encoded Q (Z2 = 1, or 0 for infinity)."""
+def _add_mixed_formula(p: PointBatch, q: PointBatch) -> PointBatch:
     f = _PLAIN[p.group]
     x1, y1, z1 = f.coords(p.data)
     x2, y2, _z2 = f.coords(q.data)
@@ -348,8 +381,18 @@ def from_jax(point_batch, group: str, device="cpu") -> PointBatch:
     return PointBatch(torch.stack([fo.repack16(a, device) for a in leaves]), group)
 
 
+def to_jax(p: PointBatch):
+    """Port batch -> the leaves of a JAX ``PointBatch`` as numpy (24, N)
+    uint32 16-bit limbs, the inverse of ``from_jax``: (x, y, z) for G1,
+    ((x0, x1), (y0, y1), (z0, z1)) for G2."""
+    leaves = [fo.unpack16(c) for c in p.data]
+    if p.group == "g1":
+        return tuple(leaves)
+    return tuple(tuple(leaves[i : i + 2]) for i in range(0, 6, 2))
+
+
 __all__ = [
     "PointBatch", "infinity", "is_infinity", "select_point", "double", "add", "add_mixed",
     "double_plain", "add_plain", "add_mixed_plain", "normalize", "normalize_plain",
-    "g1_encode", "g1_decode", "g2_encode", "g2_decode", "from_jax",
+    "g1_encode", "g1_decode", "g2_encode", "g2_decode", "from_jax", "to_jax",
 ]

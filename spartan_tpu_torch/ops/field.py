@@ -35,7 +35,7 @@ __all__ = [
     "add", "sub", "neg", "mont_mul", "to_mont", "from_mont",
     "pow_const", "fermat_inv", "inv", "batch_inv", "zeros", "ones_mont", "reduce_wide",
     "sum_mod", "add_plain", "sub_plain", "mont_mul_plain", "fermat_inv_plain",
-    "encode_ints", "decode_ints", "encode_mont", "decode_mont", "repack16",
+    "encode_ints", "decode_ints", "encode_mont", "decode_mont", "repack16", "unpack16",
     "ints_to_limbs", "limbs_to_ints",
 ]
 
@@ -121,6 +121,17 @@ def repack16(arr16, device="cpu") -> torch.Tensor:
         raise ValueError("16-bit limb count must be even")
     packed = (a[0::2] | (a[1::2] << 16)).astype(np.uint32)
     return torch.from_numpy(np.ascontiguousarray(packed).view(np.int32)).to(device)
+
+
+def unpack16(t: torch.Tensor) -> np.ndarray:
+    """Port layout (K, ...) int32 -> JAX layout (2K, ...) uint32 16-bit
+    limbs, the inverse of ``repack16``: l16[2i] = l32[i] & 0xFFFF,
+    l16[2i+1] = l32[i] >> 16."""
+    a = t.detach().cpu().numpy().view(np.uint32)
+    out = np.empty((2 * a.shape[0],) + a.shape[1:], dtype=np.uint32)
+    out[0::2] = a & MASK16
+    out[1::2] = a >> 16
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +222,11 @@ def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     few calls. Large batches accumulate La shifted row products instead,
     which never holds the La x (La + Lb) buffer."""
     la, lb = a.shape[0], b.shape[0]
-    rest = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    ra, rb = a.shape[1:], b.shape[1:]
+    if ra == rb or (len(ra) == len(rb) and all(d == 1 for d in rb)):  # skips broadcast_shapes' cost
+        rest = ra
+    else:
+        rest = torch.broadcast_shapes(ra, rb)
     lanes = 1
     for d in rest:
         lanes *= d

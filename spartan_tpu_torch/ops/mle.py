@@ -17,7 +17,7 @@ from spartan_tpu_torch.ops import field as f
 from spartan_tpu_torch.ops.field import FR
 
 __all__ = [
-    "fold", "eval_at", "eq_table", "eq_suffix_tables", "eq_suffix_tables_mont",
+    "fold", "eval_at", "eval_binary", "eq_table", "eq_suffix_tables", "eq_suffix_tables_mont",
     "eq_table_plain", "eq_suffix_tables_plain", "sum_mod", "scale",
     "fold_b", "eq_table_b", "eq_suffix_tables_b",
 ]
@@ -43,6 +43,12 @@ def eval_at(table: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
     for i in range(rs.shape[1]):
         t = fold(t, rs[:, i])
     return t
+
+
+def eval_binary(table: torch.Tensor, idx: int) -> torch.Tensor:
+    """The table's entry at the boolean point ``idx`` (bit i = variable i):
+    (8, 1)."""
+    return table[:, idx : idx + 1]
 
 
 def scale(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

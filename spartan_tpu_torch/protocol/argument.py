@@ -14,7 +14,8 @@ challenge after decoding every round (the host loop).
 
 ``setup`` and ``index`` build on the card unless the caller names another
 device (the CPU tests pass ``"cpu"``); ``prove`` runs on the device of
-``pp``; ``verify`` runs on the host.
+``pp``, or sharded over a mesh of devices (``mesh=``: the host loop on
+``parallel/sharded_prove.py``'s route); ``verify`` runs on the host.
 """
 
 from __future__ import annotations
@@ -65,29 +66,42 @@ class MLArgumentForR1CS:
         return _index(matrix_a, matrix_b, matrix_c, device)
 
     @staticmethod
-    def prove(pk: IndexPK, v: List[int], w: List[int], pp: PublicParameter) -> Proof:
+    def prove(pk: IndexPK, v: List[int], w: List[int], pp: PublicParameter, mesh=None) -> Proof:
+        """Non-interactive prove on the device of ``pp``. With ``mesh`` (a
+        ``parallel.sharded.Mesh``, whose first device holds ``pk`` and
+        ``pp``), the commit and opening MSMs and both sumchecks run sharded
+        over the mesh on the host loop (``parallel/sharded_prove.py``): the
+        same proof bytes at any device count."""
         if pk.matrix_a.coo[2].device != pp.device:
             raise invalid_arg(f"index on {pk.matrix_a.coo[2].device}, parameters on {pp.device}")
+        route = pr.ONE_DEVICE
+        if mesh is not None:
+            from spartan_tpu_torch.parallel import sharded_prove
+
+            if mesh.first != pp.device:
+                raise invalid_arg(f"parameters on {pp.device}, the mesh's first device is {mesh.first}")
+            route = sharded_prove.route(mesh)
+        label = route.label
         log_n = pk.log_n
         fs = _transcript((pk.matrix_a, pk.matrix_b, pk.matrix_c), v)
         log_v = len(v).bit_length() - 1
 
         ps = pr.prover_init(pk, v, w)
-        with span("Prove 1"):
-            ps, pm1 = pr.prover_first_round(ps, pp)
+        with span("Prove 1" + label):
+            ps, pm1 = pr.prover_first_round(ps, pp, route)
         fs.feed(pm1.serialize())
         r_v = fs.sample_fr_vec(log_v)
 
-        with span("Prove 2"):
-            ps, pm2 = pr.prover_second_round(ps, r_v, pp)
+        with span("Prove 2" + label):
+            ps, pm2 = pr.prover_second_round(ps, r_v, pp, route)
         fs.feed(pm2.serialize())
         tor = fs.sample_fr_vec(log_n)
 
-        with span("Prove 3"):
-            ps, pm3 = pr.prover_third_round(ps, tor)
+        with span("Prove 3" + label):
+            ps, pm3 = pr.prover_third_round(ps, tor, route)
         fs.feed(pm3.serialize())
 
-        device_fs = _use_device_fs()
+        device_fs = mesh is None and _use_device_fs()
         if device_fs:
             with span("Prove Sumcheck 1 (fused)"):
                 res1 = fused.sc1_phase(ps.az, ps.bz, ps.cz, ps.suffix, ps.tor, fs.get_state())
@@ -97,27 +111,27 @@ class MLArgumentForR1CS:
             ps = pr.ProverFifthState(pk=pk, z=ps.z, r_x=res1.rs)
             r_a, r_b, r_c = res1.rabc
         else:
-            with span("Prove Sumcheck 1"):
+            with span("Prove Sumcheck 1" + label):
                 sc1_msgs = []
                 v_msg = None
                 for _ in range(log_n - 1):
-                    ps, pm = pr.prove_first_sumcheck_round(ps, v_msg)
+                    ps, pm = pr.prove_first_sumcheck_round(ps, v_msg, route)
                     fs.feed(pm.serialize())
                     sc1_msgs.append(pm)
                     v_msg = vr.sample_verify_first_sumcheck_ongoing_round(fs)
-                ps, pm = pr.prove_first_sumcheck_round(ps, v_msg)
+                ps, pm = pr.prove_first_sumcheck_round(ps, v_msg, route)
             fs.feed(pm.serialize())
             sc1_msgs.append(pm)
             vm3 = vr.sample_verify_first_sumcheck_final_round(fs)
 
-            with span("Prove 4"):
-                ps, pm4 = pr.prove_fourth_round(ps, vm3.last_random_point)
+            with span("Prove 4" + label):
+                ps, pm4 = pr.prove_fourth_round(ps, vm3.last_random_point, route)
             fs.feed(pm4.serialize())
             vm4 = vr.sample_verify_fourth_round(fs)
             r_a, r_b, r_c = vm4.r_a, vm4.r_b, vm4.r_c
 
-        with span("Prove 5"):
-            ps, pm5 = pr.prove_fifth_round(ps, r_a, r_b, r_c)
+        with span("Prove 5" + label):
+            ps, pm5 = pr.prove_fifth_round(ps, r_a, r_b, r_c, route)
         fs.feed(pm5.serialize())
 
         if device_fs:
@@ -128,21 +142,21 @@ class MLArgumentForR1CS:
             ps.randomness = res2.rs[:-1]
             last2 = res2.rs[-1]
         else:
-            with span("Prove Sumcheck 2"):
+            with span("Prove Sumcheck 2" + label):
                 sc2_msgs = []
                 v_msg = None
                 for _ in range(log_n - 1):
-                    ps, pm = pr.prove_second_sumcheck_round(ps, v_msg)
+                    ps, pm = pr.prove_second_sumcheck_round(ps, v_msg, route)
                     fs.feed(pm.serialize())
                     sc2_msgs.append(pm)
                     v_msg = vr.sample_verify_second_sumcheck_ongoing_round(fs)
-                ps, pm = pr.prove_second_sumcheck_round(ps, v_msg)
+                ps, pm = pr.prove_second_sumcheck_round(ps, v_msg, route)
             fs.feed(pm.serialize())
             sc2_msgs.append(pm)
             last2 = vr.sample_verify_second_sumcheck_final_round(fs).last_random_point
 
-        with span("Prove 6"):
-            pm6 = pr.prove_sixth_round(ps, last2, pp)
+        with span("Prove 6" + label):
+            pm6 = pr.prove_sixth_round(ps, last2, pp, route)
 
         return Proof(
             prover_first_message=pm1,

@@ -1,10 +1,13 @@
-"""Multilinear sumcheck wire types and the host verifier.
+"""Multilinear sumcheck: wire types, the generic prover and the host
+verifier.
 
 Counterpart of ``spartan_tpu/protocol/sumcheck.py``: the ``IndexInfo``,
-``ProverMsg`` and ``VerifierMsg`` wire types and the lazy verifier (store
-every round, check g_1(0) + g_1(1) == claimed sum and
-g_{i+1}(0) + g_{i+1}(1) == g_i(r_i) at the end, return the subclaim). The
-prover's round kernels are in ``spartan_tpu_torch/ops/sumcheck.py``.
+``ProverMsg`` and ``VerifierMsg`` wire types; the generic prover over a
+sum of products of dense MLE tables (``prover_init``, ``prove_round``), on
+the Fr kernel K1; and the lazy verifier (store every round, check
+g_1(0) + g_1(1) == claimed sum and g_{i+1}(0) + g_{i+1}(1) == g_i(r_i) at
+the end, return the subclaim). The Spartan prover's own rounds are in
+``spartan_tpu_torch/ops/sumcheck.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+import torch
+
 from spartan_tpu_torch.host import field as hf
+from spartan_tpu_torch.ops import field as fo
+from spartan_tpu_torch.ops import mle
+from spartan_tpu_torch.ops.field import FR
 from spartan_tpu_torch.utils import serialize as ser
 from spartan_tpu_torch.utils.errors import SumCheckError, invalid_arg
 
@@ -67,6 +75,74 @@ def interpolate_uni_poly(evals: List[int], r: int) -> int:
             den = den * (j - k)
         result = (result + yj * num % hf.R * hf.fr_inv(den % hf.R)) % hf.R
     return result
+
+
+# ---------------------------------------------------------------------------
+# Generic prover (products of dense MLE tables, on the tables' device)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ProverState:
+    """Linear state machine: one fold a received challenge."""
+
+    products: List[List[torch.Tensor]]  # each factor: (8, 2^nv) Montgomery
+    num_variables: int
+    max_multiplicands: int
+    round: int = 0
+    randomness: List[int] = field(default_factory=list)
+
+
+def prover_init(products: List[List[torch.Tensor]], num_variables: int) -> ProverState:
+    """The prover of sum_b sum_j prod_k products[j][k](b)."""
+    if not products:
+        raise invalid_arg("empty combination")
+    for prod in products:
+        for t in prod:
+            if t.shape[1] != 1 << num_variables:
+                raise invalid_arg("table size mismatch")
+    return ProverState(
+        products=[list(p) for p in products],
+        num_variables=num_variables,
+        max_multiplicands=max(len(p) for p in products),
+    )
+
+
+def index_info(state: ProverState) -> IndexInfo:
+    return IndexInfo(state.max_multiplicands, state.num_variables)
+
+
+def prove_round(state: ProverState, v_msg: Optional[VerifierMsg]) -> ProverMsg:
+    """Fold every table by the challenge (none in round 0), then the
+    round polynomial at t = 0..max_multiplicands: each product's factors at
+    t by adding their odd-minus-even steps, multiplied, summed mod r.
+    Mutates ``state``."""
+    if state.round >= state.num_variables:
+        raise invalid_arg("sumcheck prover already finished")
+    if state.round > 0:
+        if v_msg is None:
+            raise invalid_arg("expected verifier randomness")
+        r = fo.encode_mont(FR, [v_msg.randomness], state.products[0][0].device)
+        state.randomness.append(v_msg.randomness)
+        state.products = [[mle.fold(t, r) for t in prod] for prod in state.products]
+    elif v_msg is not None:
+        raise invalid_arg("first round takes no randomness")
+
+    npoints = state.max_multiplicands + 1
+    evals = [0] * npoints
+    for prod in state.products:
+        evens = [t[:, 0::2] for t in prod]
+        steps = [fo.sub(FR, t[:, 1::2], e) for t, e in zip(prod, evens)]
+        cur = evens
+        for tpoint in range(npoints):
+            if tpoint > 0:
+                cur = [fo.add(FR, c, s) for c, s in zip(cur, steps)]
+            acc = cur[0]
+            for factor in cur[1:]:
+                acc = fo.mont_mul(FR, acc, factor)
+            evals[tpoint] = (evals[tpoint] + fo.decode_mont(FR, mle.sum_mod(acc))[0]) % hf.R
+    state.round += 1
+    return ProverMsg(evaluations=evals)
 
 
 # ---------------------------------------------------------------------------

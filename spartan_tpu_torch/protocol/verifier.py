@@ -5,7 +5,8 @@ Counterpart of ``spartan_tpu/protocol/verifier.py``. Every real check runs
 in ``verify_sixth_round``: both polynomial-commitment openings (host
 pairings), the public-input evaluation, both sumcheck subclaims, and the
 matrix evaluations A, B, C(r_x, r_y) through the native O(nnz) walk
-(``host/native.py:matrix_eval3_native``).
+(``host/native.py:matrix_eval3_native``), or on the index's device
+(``matrix_evals_device``) where the walk returns None (no native library).
 """
 
 from __future__ import annotations
@@ -13,10 +14,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List
 
+import torch
+
 from spartan_tpu_torch.commitment import VerifierParameter, verify as pc_verify
 from spartan_tpu_torch.commitment.data_structures import Commitment, OpenProof
 from spartan_tpu_torch.host import field as hf
 from spartan_tpu_torch.host import native as _native
+from spartan_tpu_torch.ops import field as fo
+from spartan_tpu_torch.ops import mle, sparse
+from spartan_tpu_torch.ops.field import FR
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol.indexer import IndexVK
 from spartan_tpu_torch.protocol.prover import (
@@ -322,9 +328,10 @@ def verify_sixth_round(
             vk.matrix_a.serialize(), vk.matrix_b.serialize(),
             vk.matrix_c.serialize(), r_x, r_y, log_n,
         )
-        if abc is None:
-            raise RuntimeError("the native host library (g++ build) is needed for verify")
-        a_rx_ry, b_rx_ry, c_rx_ry = abc
+    if abc is None:
+        with span("Verify: matrix evals at (r_x, r_y) (device)"):
+            abc = matrix_evals_device(vk, r_x, r_y)
+    a_rx_ry, b_rx_ry, c_rx_ry = abc
     actual = (
         state.r_a * a_rx_ry % hf.R * z_ry
         + state.r_b * b_rx_ry % hf.R * z_ry
@@ -338,6 +345,19 @@ def verify_sixth_round(
             raise WrongWitness("Cannot verify z_ry")
 
     return True
+
+
+def matrix_evals_device(vk: IndexVK, r_x: List[int], r_y: List[int]):
+    """A, B, C (r_x, r_y) on the index's device
+    (``spartan_tpu/protocol/verifier.py:307-325``): the eq table of r_x
+    (``eq_tables``), each matrix's sparse partial evaluation at r_x, then
+    its fold ladder at r_y (K1). Returns three canonical Fr ints."""
+    dev = vk.matrix_a.coo[2].device
+    eqx = mle.eq_table(fo.encode_mont(FR, r_x, dev))
+    ry = fo.encode_mont(FR, r_y, dev)
+    outs = [mle.eval_at(sparse.eval_on_x_table(m.coo, eqx, 1 << len(r_x)), ry)
+            for m in (vk.matrix_a, vk.matrix_b, vk.matrix_c)]
+    return tuple(fo.decode_mont(FR, torch.cat(outs, dim=1)))
 
 
 def _host_mle_eval(table: List[int], point: List[int]) -> int:

@@ -34,7 +34,9 @@ def _all_modules():
 def test_port_imports_without_jax():
     mods = _all_modules()
     assert {"spartan_tpu_torch.ops.field", "spartan_tpu_torch.protocol.argument",
-            "spartan_tpu_torch.protocol.batched", "spartan_tpu_torch.kernels"} <= set(mods)
+            "spartan_tpu_torch.protocol.batched", "spartan_tpu_torch.kernels",
+            "spartan_tpu_torch.parallel.sharded", "spartan_tpu_torch.parallel.sharded_prove",
+            "spartan_tpu_torch.commitment.persist"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

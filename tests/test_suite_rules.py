@@ -1,10 +1,13 @@
 """Rules of the test suite itself.
 
-Tier-1 runs `-m 'not slow'`. A port test (`tests/test_torch_*.py`) that is
-too slow is made cheaper, never marked `slow`; it runs before the reference's
-tests and under the per-test limit of the root `conftest.py`.
+Tier-1 runs `-m 'not slow'`. The root `conftest.py` marks `slow` exactly the
+reference's tests it names in SLOW_REFERENCE_TESTS. A port test
+(`tests/test_torch_*.py`) that is too slow is made cheaper, never marked
+`slow`; it runs before the reference's tests, and every test left unmarked
+runs under the root `conftest.py`'s per-test limit.
 """
 
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -36,3 +39,16 @@ def test_port_tests_are_collected_first():
     files = [line.split("::")[0] for line in out.stdout.splitlines() if "::" in line]
     assert set(files) == {first, "tests/test_suite_rules.py"}, out.stdout
     assert files == sorted(files, key=lambda f: f != first), out.stdout
+
+
+def test_slow_marks_exactly_the_named_reference_tests():
+    spec = importlib.util.spec_from_file_location(
+        "_root_conftest", TESTS.parent / "conftest.py"
+    )
+    root_conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_conftest)
+    named = root_conftest.SLOW_REFERENCE_TESTS
+    out = _collect("tests/", "-m", "slow")
+    assert out.returncode == 0, out.stdout + out.stderr
+    ids = [line for line in out.stdout.splitlines() if "::" in line]
+    assert sorted(ids) == sorted(named), out.stdout

@@ -10,10 +10,17 @@ the one client's closed loop), ``metrics/<metric>.py`` (a reader:
 metric ``<name>.<part>`` without a file of its own is read by
 ``metrics/<name>.py``) and ``costs/<entry>.json`` (a kernel's products and
 bytes a lane). ``BENCHMARK.json`` names them.
+
+A configuration's ``"shards": D`` (1 where it is left out) is its
+deployment's layout: one prove split over D cards, a shard on each, through
+``MLArgumentForR1CS.prove(..., mesh=...)``. Its cells ask for D chips. Every
+card of the mesh is synchronized and measured: the memory peak is the
+fullest card's, and a traced run's busy time is read card by card.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -60,14 +67,23 @@ def find_cell(bench: dict, name: str) -> dict:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json (have {sorted(cells)})")
     cell = cells[name]
     cfg = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    config = json.loads((ROOT / cfg["file"]).read_text())
+    traffic = json.loads((HERE / "traffic" / f"{cell['traffic']}.json").read_text())
+    shards = config.get("shards", 1)
+    if cell["chips"] != shards:
+        raise SystemExit(f"workload {name!r} asks for {cell['chips']} chips, its configuration "
+                         f"{cell['config']!r} has shards {shards}: a cell takes a card a shard")
+    if shards > 1 and traffic["entry"] == "batch":
+        raise SystemExit(f"workload {name!r}: shards {shards} with the batch traffic {cell['traffic']!r}; "
+                         "prove_many has no mesh")
 
     def mine(m):
         return name in m.get("workloads", [name])
 
     return {
         "cell": cell,
-        "config": json.loads((ROOT / cfg["file"]).read_text()),
-        "traffic": json.loads((HERE / "traffic" / f"{cell['traffic']}.json").read_text()),
+        "config": config,
+        "traffic": traffic,
         "end_to_end": [m for m in bench["end_to_end"] if mine(m)],
         "per_layer": [m for m in bench["per_layer"] if mine(m)],
     }
@@ -95,7 +111,10 @@ def log(msg: str) -> None:
 
 class Program:
     """The system under test: the port's set-up and its two entry points,
-    ``prove_one`` and ``prove_many``."""
+    ``prove_one`` and ``prove_many``. With the configuration's shards D > 1,
+    keys and index live on the mesh's first device and ``prove_one`` proves
+    over the mesh; ``cards`` are the devices the run synchronizes and
+    measures."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device: str):
         import torch
@@ -118,18 +137,42 @@ class Program:
         self.instances = {}
         for i, s in enumerate(seeds):
             self.instances[i] = generator.instance(shape, s, offsets)
+        self.mesh, home, self.cards = None, device, [self.device]
+        shards = config.get("shards", 1)
+        if shards > 1:
+            self.mesh = self.make_mesh(shards)
+            home, self.cards = self.mesh.first, list(dict.fromkeys(self.mesh.devices))
         t = time.perf_counter()
-        self.pp, self.vp = MLArgumentForR1CS.setup(shape.log_n, KeyStream(self.key_seed), device)
-        self.pk = MLArgumentForR1CS.index(*self.matrices, device)
+        self.pp, self.vp = MLArgumentForR1CS.setup(shape.log_n, KeyStream(self.key_seed), home)
+        self.pk = MLArgumentForR1CS.index(*self.matrices, home)
         self.sync()
         log(f"keys and index in {time.perf_counter() - t:.2f} s")
         from spartan_tpu_torch.protocol import batched
 
         self.prove_one, self.prove_many = MLArgumentForR1CS.prove, batched.prove_many
+        if self.mesh is not None:
+            self.prove_one = functools.partial(MLArgumentForR1CS.prove, mesh=self.mesh)
+
+    def make_mesh(self, shards: int):
+        """The mesh one prove is split over: a shard on each of cuda:0 ..
+        cuda:D-1, or D shards on the CPU."""
+        from spartan_tpu_torch.parallel.sharded import make_mesh
+
+        return make_mesh(shards) if self.cuda else make_mesh(devices=[self.device] * shards)
 
     def sync(self) -> None:
         if self.cuda:
-            self.torch.cuda.synchronize()
+            for card in self.cards:
+                self.torch.cuda.synchronize(card)
+
+    def reset_peak(self) -> None:
+        if self.cuda:
+            for card in self.cards:
+                self.torch.cuda.reset_peak_memory_stats(card)
+
+    def peak_bytes(self) -> int:
+        """The allocator's peak since the last reset on the fullest card."""
+        return max(self.torch.cuda.max_memory_allocated(card) for card in self.cards) if self.cuda else 0
 
     def call(self, k: int) -> list:
         """Call number k of the closed loop: [(instance id, Proof)]. The
@@ -230,9 +273,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.2f} s; measuring {seconds} s")
 
-    setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    setup_peak = program.peak_bytes()
+    program.reset_peak()
     latencies, outs, traced = [], [], None
     stop = None
     program.sync()
@@ -251,7 +293,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
     if stop is not None:
         traced = stop()
     window_s = time.perf_counter() - t0
-    window_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    window_peak = program.peak_bytes()
     log(f"window {window_s:.3f} s, {k} calls; call latencies s: {[round(x, 4) for x in latencies[:200]]}")
     found = forbidden_modules()
     if found:
@@ -305,13 +347,16 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
         "device": {
             "platform": "gpu" if cuda else "cpu",
             "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-            "count": cell["chips"] if cuda else 1,
+            "count": cell["chips"],
             "memory_peak_bytes": max(setup_peak, window_peak),
         },
     }
     if trace:
         tr = run["trace"]
-        result["device"]["busy_s"] = tr["busy_s"]
+        # averaged over the cards the run uses; idle_pct and the breakdown
+        # read the busiest card
+        result["device"]["busy_s"] = sum(tr["busy_s_by_card"].values()) / cell["chips"]
+        result["device"]["busy_s_by_card"] = tr["busy_s_by_card"]
         result["device"]["window_s"] = tr["window_s"]
         result["breakdown"] = breakdown(tr)
     result["checks"] = checks

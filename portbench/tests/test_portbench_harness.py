@@ -1,8 +1,9 @@
 """The harness on the CPU: the frozen generator against the program's
 synthesizer, the files found by name (and a new one found without an
-edit), the import rules, the trace reduction, and the run loop driven on
-the program's CPU path at 2^5: once sound, and once for each fault a cell
-can have, which must read ``correct`` false.
+edit, sharded or not), the import rules, the trace reduction (one card and
+two), and the run loop driven on the program's CPU path at 2^5: once sound,
+once over 4 CPU shards, and once for each fault a cell can have, which must
+read ``correct`` false.
 
     python -m pytest portbench/tests -q
 """
@@ -91,15 +92,18 @@ def _digest(tree: Path) -> dict:
             for p in sorted(tree.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
-def test_new_files_are_picked_up_without_an_edit(tmp_path):
+@pytest.mark.parametrize("shards", [1, 4])
+def test_new_files_are_picked_up_without_an_edit(tmp_path, shards):
     """A configuration, a traffic mix, a metric and a kernel's cost dropped
     into a copy of each folder are found by the names a new BENCHMARK.json
-    entry gives; no file of the harness changes."""
+    entry gives; no file of the harness changes. With ``"shards": 4`` the
+    configuration is a sharded deployment, and its cell asks for 4 chips."""
     shutil.copytree(BENCH_DIR, tmp_path / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
     before = _digest(tmp_path / "portbench")
     bench = _bench()
+    layout = {"shards": shards} if shards > 1 else {}
     (tmp_path / "portbench" / "configs" / "spartan-2e12-d64.json").write_text(
-        json.dumps({**TINY, "name": "spartan-2e12-d64", "log_n": 12, "density": 64}))
+        json.dumps({**TINY, "name": "spartan-2e12-d64", "log_n": 12, "density": 64, **layout}))
     (tmp_path / "portbench" / "traffic" / "closed1-pool4.json").write_text(
         json.dumps({"name": "closed1-pool4", "entry": "single", "batch": 1, "pool": 4,
                     "warmup_calls": 1, "trace_calls": 2}))
@@ -111,7 +115,7 @@ def test_new_files_are_picked_up_without_an_edit(tmp_path):
     bench["configs"].append({"name": "spartan-2e12-d64", "source": "x", "file": "portbench/configs/spartan-2e12-d64.json",
                              "reduced": [], "why": "x"})
     bench["workloads"].append({"name": "r1cs12-d64-single", "config": "spartan-2e12-d64",
-                               "traffic": "closed1-pool4", "chips": 1, "why": "x"})
+                               "traffic": "closed1-pool4", "chips": shards, "why": "x"})
     bench["end_to_end"].append({"name": "calls_per_s", "unit": "1/s", "better": "higher", "bound": 0.05,
                                 "source": "host_clock", "workloads": ["r1cs12-d64-single"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
@@ -122,16 +126,40 @@ def test_new_files_are_picked_up_without_an_edit(tmp_path):
         "s = harness.find_cell(b, 'r1cs12-d64-single');"
         "r = harness.reader('calls_per_s')({'calls': 6, 'window_s': 2.0});"
         "print(json.dumps([s['config']['log_n'], s['traffic']['pool'], sorted(m['name'] for m in s['end_to_end']),"
-        " r, 'g3_add' in yardstick.costs(), harness.__file__]))"
+        " r, 'g3_add' in yardstick.costs(), harness.__file__, s['config'].get('shards', 1), s['cell']['chips']]))"
     )
     out = subprocess.run([sys.executable, "-c", probe, str(tmp_path)], capture_output=True, text=True, check=True)
-    log_n, pool, e2e, rate, cost, where = json.loads(out.stdout)
+    log_n, pool, e2e, rate, cost, where, found_shards, chips = json.loads(out.stdout)
     assert (log_n, pool, rate, cost) == (12, 4, 3.0, True)
+    assert (found_shards, chips) == (shards, shards)
     assert e2e == ["calls_per_s", "peak_mem_gib", "setup_s"]
     assert where.startswith(str(tmp_path))
     after = _digest(tmp_path / "portbench")
     assert {k: v for k, v in after.items() if k in before} == before
     assert len(after) == len(before) + 4
+
+
+def _bench_with(tmp_path, shards: int, chips: int, traffic: str) -> dict:
+    """BENCHMARK.json with one more configuration, of ``shards``, and a cell
+    ``new`` of it on ``chips`` chips under ``traffic``."""
+    bench = _bench()
+    cfg = tmp_path / "sharded.json"
+    cfg.write_text(json.dumps({**TINY, "name": "sharded", "shards": shards}))
+    bench["configs"].append({"name": "sharded", "source": "x", "file": str(cfg), "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "new", "config": "sharded", "traffic": traffic, "chips": chips, "why": "x"})
+    return bench
+
+
+@pytest.mark.parametrize("shards,chips,traffic,refused", [
+    (4, 1, "closed1-pool16", "asks for 1 chips, its configuration 'sharded' has shards 4"),
+    (1, 4, "closed1-pool16", "asks for 4 chips, its configuration 'sharded' has shards 1"),
+    (4, 4, "batch64-pool128", "prove_many has no mesh"),
+])
+def test_find_cell_refuses_a_layout_the_cell_cannot_run(tmp_path, shards, chips, traffic, refused):
+    with pytest.raises(SystemExit, match=refused):
+        harness.find_cell(_bench_with(tmp_path, shards, chips, traffic), "new")
+    spec = harness.find_cell(_bench_with(tmp_path, shards, shards, "closed1-pool16"), "new")
+    assert spec["cell"]["chips"] == spec["config"]["shards"] == shards
 
 
 # -- imports ---------------------------------------------------------------------------
@@ -189,7 +217,28 @@ def test_trace_reduction():
     # the gaps: before the first kernel, between the kernels and the copy, after the copy
     assert red["idle"] == [(pytest.approx(19e-6), "commit MSM"), (pytest.approx(90e-6), "Prove 2"),
                            (pytest.approx(35e-6), "Prove 2")]
+    assert red["busy_s_by_card"] == {"0": pytest.approx(60e-6)}
     assert yardstick.entry_point("void team_kernel<G2, 8, 1>(int)") == "g2_add"
+
+    # the same events named as card 0's read the same; with two kernels on
+    # card 1, 80 us of them, card 1 is the busiest and its gaps are the idle ones
+    on_card0 = [{**e, "args": {**e["args"], "device": 0}} if e["cat"] in yardstick.DEVICE_CATS else e for e in ev]
+    assert yardstick.reduce_trace(on_card0, ("call",)) == red
+    ev2 = on_card0 + [
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 70, "dur": 2, "tid": 1, "args": {"correlation": 4}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110, "dur": 2, "tid": 1, "args": {"correlation": 5}},
+        {"cat": "kernel", "name": "card1 a", "ts": 75, "dur": 40, "args": {"correlation": 4, "device": 1}},
+        {"cat": "kernel", "name": "card1 b", "ts": 120, "dur": 40, "args": {"correlation": 5, "device": 1}},
+    ]
+    red2 = yardstick.reduce_trace(ev2, ("call",))
+    assert red2["busy_s_by_card"] == {"0": pytest.approx(60e-6), "1": pytest.approx(80e-6)}
+    assert red2["busy_s"] == pytest.approx(80e-6)
+    assert red2["device"][:3] == red["device"]
+    spans2 = {name: s for name, _ts, _d, s in red2["device"]}
+    assert spans2["card1 a"] == ("call", "Prove 1") and spans2["card1 b"] == ("call", "Prove 2")
+    # card 1's gaps over the same window, 1 to 205 us: before its first kernel, between its two, after
+    assert red2["idle"] == [(pytest.approx(74e-6), "commit MSM"), (pytest.approx(5e-6), "Prove 2"),
+                            (pytest.approx(45e-6), "Prove 2")]
 
 
 def test_launch_bound():
@@ -224,6 +273,34 @@ def test_run_loop_on_the_cpu(capsys):
     assert line["device"]["platform"] == "cpu" and line["device"]["kind"] == "cpu"
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
     assert set(line["metrics"]) == {"prove_s", "prove_p90_s", "peak_mem_gib", "setup_s"}
+
+
+def _recording(made: dict, meshes: list):
+    """The program, keeping each proof's bytes by instance and its mesh."""
+    class Recording(harness.Program):
+        def call(self, k):
+            meshes.append(self.mesh)
+            out = super().call(k)
+            made.update((inst, p.serialize()) for inst, p in out)
+            return out
+
+    return Recording
+
+
+def test_sharded_run_loop_on_the_cpu(tmp_path):
+    """A configuration of 4 shards and its cell on 4 chips, through
+    find_cell and run_cell at 2^5 with 4 CPU shards: correct, 4 devices,
+    and the proofs of the unsharded run of the same seed, byte for byte."""
+    spec = harness.find_cell(_bench_with(tmp_path, 4, 4, "closed1-pool16"), "new")
+    spec["traffic"] = {"warmup_calls": 1, "trace_calls": 1, **SINGLE}
+    sharded, single, meshes = {}, {}, []
+    res = harness.run_cell(spec, 2**31 + 101, 0.01, False, "cpu", program_class=_recording(sharded, meshes))
+    assert res["correct"] is True and res["failed"] == 0 and res["device"]["count"] == 4
+    assert meshes and all(m is not None and len(m) == 4 for m in meshes)
+    harness.run_cell(_spec("r1cs16-d0-single", **SINGLE), 2**31 + 101, 0.01, False, "cpu",
+                     program_class=_recording(single, []))
+    assert set(sharded) & set(single) == {0, 1}
+    assert all(sharded[i] == single[i] for i in (0, 1))
 
 
 def test_the_command_without_a_card_prints_no_result():
@@ -268,10 +345,24 @@ def _altered(real, slots=slice(None)):
     return phase
 
 
+def _off_by_one(real):
+    """A sharded degree-2 round whose first evaluation is off by one."""
+    from spartan_tpu_torch.ops import field as fo
+
+    def round_(*a, **k):
+        evals, *tabs = real(*a, **k)
+        xs = fo.decode_mont(fo.FR, evals)
+        xs[0] = (xs[0] + 1) % generator.R
+        return (fo.encode_mont(fo.FR, xs, evals.device).to(evals.dtype), *tabs)
+
+    return round_
+
+
 @pytest.mark.parametrize("fault", ["stale_state", "altered_answer", "half_batch", "altered_answer_batch",
-                                   "altered_answer_one_slot"])
-def test_faults_read_incorrect(fault, monkeypatch):
+                                   "altered_answer_one_slot", "altered_answer_sharded"])
+def test_faults_read_incorrect(fault, monkeypatch, tmp_path):
     """The run loop with the timed path broken underneath: correct false."""
+    from spartan_tpu_torch.parallel import sharded
     from spartan_tpu_torch.protocol import argument, batched, fused
 
     if fault == "stale_state":
@@ -286,9 +377,13 @@ def test_faults_read_incorrect(fault, monkeypatch):
     elif fault == "altered_answer_batch":
         monkeypatch.setattr(fused, "sc2_phase_b", _altered(fused.sc2_phase_b))
         spec = _spec("r1cs16-d0-batch64", **BATCH)
-    else:  # one slot of every batch, the last
+    elif fault == "altered_answer_one_slot":  # one slot of every batch, the last
         monkeypatch.setattr(fused, "sc2_phase_b", _altered(fused.sc2_phase_b, slice(-1, None)))
         spec = _spec("r1cs16-d0-batch64", **BATCH)
+    else:  # the rounds over 4 CPU shards
+        monkeypatch.setattr(sharded, "prod2_round", _off_by_one(sharded.prod2_round))
+        spec = harness.find_cell(_bench_with(tmp_path, 4, 4, "closed1-pool16"), "new")
+        spec["traffic"] = {"warmup_calls": 1, "trace_calls": 1, **SINGLE}
     res = harness.run_cell(spec, 2**32 + 3, 0.01, False, "cpu")
     assert res["correct"] is False and res["failed"] >= 1
 

@@ -106,13 +106,15 @@ def reduce_trace(events: list, calls: tuple = ()) -> dict:
     """A Chrome trace's events (``torch.profiler``'s export) reduced to
     what the readers take:
 
-    - ``device``: each kernel, copy and set on the card as (name, start us,
+    - ``device``: each kernel, copy and set on a card as (name, start us,
       duration us, the host spans around its launch);
-    - ``busy_s``: the union of their intervals;
-    - ``idle``: each gap of the card as (seconds, the innermost host span
-      open at the gap's middle), over the traced calls: from the start of
-      the first host range named in ``calls`` to the end of the last (or
-      of the last device event, if later).
+    - ``busy_s_by_card``: for each card (the event's ``args.device``, as a
+      string), the union of its events' intervals;
+    - ``busy_s``: the busiest card's;
+    - ``idle``: each gap of the busiest card as (seconds, the innermost
+      host span open at the gap's middle), over the traced calls: from the
+      start of the first host range named in ``calls`` to the end of the
+      last (or of the last device event, if later).
 
     A device event's spans are the ``record_function`` ranges open on the
     host thread at the moment of its launch (the runtime call with the same
@@ -143,11 +145,29 @@ def reduce_trace(events: list, calls: tuple = ()) -> dict:
         for i, stack in _open_ranges(annotations.get(tid, []), qs):
             spans_of[i] = stack
 
-    intervals = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in device)
+    by_card = {}
+    for e in device:
+        card = str((e.get("args") or {}).get("device", 0))
+        by_card.setdefault(card, []).append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
     all_ann = [x for v in annotations.values() for x in v]
     bounds = [(a, b) for a, b, name in all_ann if name in calls]
-    lo = min([a for a, _b in bounds] + [a for a, _b in intervals[:1]], default=0.0)
-    hi = max([b for _a, b in bounds] + [b for _a, b in intervals], default=0.0)
+    intervals = [x for iv in by_card.values() for x in iv]
+    lo = min([a for a, _b in bounds + intervals], default=0.0)
+    hi = max([b for _a, b in bounds + intervals], default=0.0)
+    cards = {card: _union(sorted(iv), lo, hi) for card, iv in by_card.items()}
+    busy, gaps = max(cards.values(), key=lambda bg: bg[0], default=_union([], lo, hi))
+    mids = dict(_open_ranges(all_ann, [((a + b) / 2, j) for j, (a, b) in enumerate(gaps)]))
+    idle = [((b - a) / 1e6, (mids.get(j) or ("(no span)",))[-1]) for j, (a, b) in enumerate(gaps)]
+    return {
+        "device": [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)), spans_of[i]) for i, e in enumerate(device)],
+        "busy_s": busy / 1e6,
+        "busy_s_by_card": {card: b / 1e6 for card, (b, _g) in sorted(cards.items())},
+        "idle": idle,
+    }
+
+
+def _union(intervals, lo: float, hi: float):
+    """(busy us, gaps) of sorted (start, end) ``intervals`` over [lo, hi]."""
     busy, end, gaps = 0.0, lo, []
     for a, b in intervals:
         if a > end:
@@ -156,13 +176,7 @@ def reduce_trace(events: list, calls: tuple = ()) -> dict:
         end = max(end, b)
     if hi > end:
         gaps.append((end, hi))
-    mids = dict(_open_ranges(all_ann, [((a + b) / 2, j) for j, (a, b) in enumerate(gaps)]))
-    idle = [((b - a) / 1e6, (mids.get(j) or ("(no span)",))[-1]) for j, (a, b) in enumerate(gaps)]
-    return {
-        "device": [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)), spans_of[i]) for i, e in enumerate(device)],
-        "busy_s": busy / 1e6,
-        "idle": idle,
-    }
+    return busy, gaps
 
 
 def _open_ranges(ranges, queries):

@@ -21,6 +21,12 @@ rounds, K3 (G1) or K4 (G2) in the MSMs and the reduction. A mesh may name
 one device several times (``make_mesh(devices=["cuda:0"] * 4)``, or
 ``["cpu"] * 4`` for the plain versions): every sharded code path runs all
 the same.
+
+Every copy from one device to another (``to_device``: table and point
+blocks, gathers, partial sums and points, challenges) adds one to
+``kernels.LANES["xcard_copy"][(bytes,)]``, so a traced run can tell the
+cross-card traffic of a prove. A mesh that names one device only copies
+nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from spartan_tpu_torch.ops.curve import PointBatch
 from spartan_tpu_torch.utils.errors import invalid_arg
 
 MSM_WINDOW = 8  # the sharded MSM's window width, as spartan_tpu/parallel/sharded.py:192 fixes it
+XCARD = "xcard_copy"  # the counter of copies between devices in kernels.LANES, keyed by (bytes,)
 
 
 @dataclass(frozen=True)
@@ -88,6 +95,13 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
     return Mesh(devs)
 
 
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``; a copy from another device is counted under XCARD."""
+    if t.device != dev:
+        kernels.LANES[XCARD][(t.numel() * t.element_size(),)] += 1
+    return t.to(dev)
+
+
 def shard_table(mesh: Mesh, table: torch.Tensor) -> List[torch.Tensor]:
     """D contiguous blocks of the last axis, block k on device k: a view
     where the block's device is the table's, a copy otherwise."""
@@ -96,7 +110,7 @@ def shard_table(mesh: Mesh, table: torch.Tensor) -> List[torch.Tensor]:
     if n % d:
         raise invalid_arg(f"{n} entries do not split over {d} shards")
     m = n // d
-    return [table[..., k * m : (k + 1) * m].to(dev) for k, dev in enumerate(mesh.devices)]
+    return [to_device(table[..., k * m : (k + 1) * m], dev) for k, dev in enumerate(mesh.devices)]
 
 
 def shard_points(mesh: Mesh, points: PointBatch) -> List[PointBatch]:
@@ -106,12 +120,12 @@ def shard_points(mesh: Mesh, points: PointBatch) -> List[PointBatch]:
 
 def gather(mesh: Mesh, shards: List[torch.Tensor]) -> torch.Tensor:
     """The shards in shard order as one table on the first device."""
-    return torch.cat([s.to(mesh.first) for s in shards], dim=-1)
+    return torch.cat([to_device(s, mesh.first) for s in shards], dim=-1)
 
 
 def _psum(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
     """sum_k parts[k] mod r on the first device: (8, 3) canonical."""
-    stacked = torch.stack([p.to(mesh.first) for p in parts], dim=-1)  # (8, 3, D)
+    stacked = torch.stack([to_device(p, mesh.first) for p in parts], dim=-1)  # (8, 3, D)
     return fo.sum_mod(stacked)[..., 0]
 
 
@@ -129,7 +143,7 @@ def sc1_round(mesh: Mesh, az, bz, cz, s_table: torch.Tensor, do_fold: bool, r: t
     s = shard_table(mesh, s_table)
     parts, out = [], ([], [], [])
     for k, dev in enumerate(mesh.devices):
-        ev, *tabs = sck.sc1_round(az[k], bz[k], cz[k], s[k], do_fold, r.to(dev) if do_fold else None)
+        ev, *tabs = sck.sc1_round(az[k], bz[k], cz[k], s[k], do_fold, to_device(r, dev) if do_fold else None)
         parts.append(ev)
         for lst, t in zip(out, tabs):
             lst.append(t)
@@ -141,7 +155,7 @@ def prod2_round(mesh: Mesh, w, z, do_fold: bool, r: torch.Tensor = None):
     ``ops/sumcheck.py:prod2_round``. Returns ((8, 3) evals, w', z')."""
     parts, ws, zs = [], [], []
     for k, dev in enumerate(mesh.devices):
-        ev, wk, zk = sck.prod2_round(w[k], z[k], do_fold, r.to(dev) if do_fold else None)
+        ev, wk, zk = sck.prod2_round(w[k], z[k], do_fold, to_device(r, dev) if do_fold else None)
         parts.append(ev)
         ws.append(wk)
         zs.append(zk)
@@ -185,5 +199,5 @@ def msm(mesh: Mesh, points: List[PointBatch], scalars: List[torch.Tensor], c: in
         res = msm_mod.msm_many(PointBatch.cat([points[k] for k in ks]), [points[k].n for k in ks],
                                torch.cat([scalars[k] for k in ks], dim=1), c)
         for j, k in enumerate(ks):
-            partial[k] = PointBatch(res.data[..., j : j + 1].to(mesh.first), res.group)
+            partial[k] = PointBatch(to_device(res.data[..., j : j + 1], mesh.first), res.group)
     return tree_reduce(PointBatch.cat(partial))

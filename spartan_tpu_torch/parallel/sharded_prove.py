@@ -47,8 +47,9 @@ def sharded_commit(pp: PublicParameter, poly, mesh: sharded.Mesh) -> Commitment:
     nv = int(poly.shape[1]).bit_length() - 1
     if nv != pp.nv:
         raise invalid_arg("polynomial nv mismatch with public parameter")
-    res = sharded.msm(mesh, sharded.shard_points(mesh, pp.powers_of_g[0]),
-                      sharded.shard_table(mesh, fo.from_mont(FR, poly)))
+    with span("commit MSM (sharded)"):
+        res = sharded.msm(mesh, sharded.shard_points(mesh, pp.powers_of_g[0]),
+                          sharded.shard_table(mesh, fo.from_mont(FR, poly)))
     return Commitment(nv=nv, g_product=cv.g1_decode(res)[0])
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``spartan_tpu/protocol/argument.py``: the transcript absorbs
 the serialized A, B, C and the public input, then every prover message, and
 samples each verifier challenge from the same stream. The proof bytes equal
-the JAX package's.
+the JAX package's. The chain state after A, B and C depends on the index
+alone: ``index`` computes it once (``IndexPK.fs_state``), and ``prove`` and
+``verify`` resume their transcripts from it, then absorb the public input.
 
 Two routes through the sumchecks, with the same bytes, chosen as the JAX
 package chooses (:32-36): by default each sumcheck phase, prover round 4
@@ -43,10 +45,11 @@ def _use_device_fs() -> bool:
     return os.environ.get("SPARTAN_DEVICE_FS", "1") not in ("0", "false")
 
 
-def _transcript(matrices, v: List[int]) -> Blake2sRng:
+def _transcript(fs_state: bytes, v: List[int]) -> Blake2sRng:
+    """The transcript resumed from the index's chain state after A, B, C,
+    with the public input absorbed."""
     fs = Blake2sRng.setup()
-    for m in matrices:
-        fs.feed(m.serialize())
+    fs.set_state(fs_state)
     fs.feed(ser.ser_fr_vec(v))
     return fs
 
@@ -83,7 +86,7 @@ class MLArgumentForR1CS:
             route = sharded_prove.route(mesh)
         label = route.label
         log_n = pk.log_n
-        fs = _transcript((pk.matrix_a, pk.matrix_b, pk.matrix_c), v)
+        fs = _transcript(pk.fs_state, v)
         log_v = len(v).bit_length() - 1
 
         ps = pr.prover_init(pk, v, w)
@@ -179,7 +182,7 @@ class MLArgumentForR1CS:
         if len(sc1) != log_n or len(sc2) != log_n:
             raise invalid_arg("malformed sumcheck message")
 
-        fs = _transcript((vk.matrix_a, vk.matrix_b, vk.matrix_c), v)
+        fs = _transcript(vk.fs_state, v)
         vs = vr.verifier_init(vk, v)
 
         fs.feed(proof.prover_first_message.serialize())

@@ -172,14 +172,12 @@ def prove_many(pk: IndexPK, instances: Sequence[Tuple[List[int], List[int]]], pp
         raise invalid_arg("|v| + |w| != number of variables")
 
     # each instance its own transcript: the matrices' absorptions are common
-    # to all, then each absorbs its own public input (reference src/lib.rs:61-65)
-    fs0 = Blake2sRng.setup()
-    for m in (pk.matrix_a, pk.matrix_b, pk.matrix_c):
-        fs0.feed(m.serialize())
+    # to all, kept by the index; then each absorbs its own public input
+    # (reference src/lib.rs:61-65)
     fss = []
     for v, _w in instances:
         fs = Blake2sRng.setup()
-        fs.set_state(fs0.get_state())
+        fs.set_state(pk.fs_state)
         fs.feed(ser.ser_fr_vec(v))
         fss.append(fs)
 

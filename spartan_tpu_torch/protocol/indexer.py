@@ -1,9 +1,13 @@
 """R1CS indexer: A, B, C as matrix MLEs with their COO on the chosen device.
 
 Counterpart of ``spartan_tpu/protocol/indexer.py``. Indexing validates each
-matrix, keeps the host rows (they are serialized into the Fiat-Shamir
-transcript, once, then cached) and uploads one flat COO triple
-(rows int64, cols int64, Montgomery vals (8, nnz)) for the sparse kernels.
+matrix, keeps the host rows, uploads one flat COO triple (rows int64, cols
+int64, Montgomery vals (8, nnz)) for the sparse kernels, and keeps the
+Fiat-Shamir chain state after absorbing the serialized A, B and C in turn
+(``fs_state``). That state depends on the matrices alone, so every prove
+and verify against the index starts its transcript from it and absorbs
+only the public input and the messages after it: the matrices are hashed
+once an index, not once a proof.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from spartan_tpu_torch.ops import field as fo
 from spartan_tpu_torch.ops.field import FR
 from spartan_tpu_torch.utils import serialize as ser
 from spartan_tpu_torch.utils.errors import invalid_arg
+from spartan_tpu_torch.utils.transcript import Blake2sRng
 
 
 @dataclass
@@ -58,30 +63,32 @@ class IndexPK:
     matrix_b: MatrixExtension
     matrix_c: MatrixExtension
     log_n: int
+    fs_state: bytes  # the transcript's chain state after A, B, C
 
     def vk(self) -> "IndexVK":
-        return IndexVK(self.matrix_a, self.matrix_b, self.matrix_c, self.log_n)
+        return IndexVK(self.matrix_a, self.matrix_b, self.matrix_c, self.log_n, self.fs_state)
 
 
 @dataclass
 class IndexVK:
-    """Verifier key: the same matrices (the verifier is O(nnz))."""
+    """Verifier key: the same matrices (the verifier is O(nnz)) and chain state."""
 
     matrix_a: MatrixExtension
     matrix_b: MatrixExtension
     matrix_c: MatrixExtension
     log_n: int
+    fs_state: bytes
 
 
 def index(matrix_a: Matrix, matrix_b: Matrix, matrix_c: Matrix, device="cuda") -> IndexPK:
-    """The prover key on ``device`` (the card unless the caller names another)."""
+    """The prover key on ``device`` (the card unless the caller names another),
+    with the transcript's chain state after A, B and C."""
     device = kernels.require_device(device)
     n = len(matrix_a)
     if n == 0 or n & (n - 1):
         raise invalid_arg("Matrix width should be a power of 2.")
-    return IndexPK(
-        matrix_a=MatrixExtension.new(matrix_a, n, device),
-        matrix_b=MatrixExtension.new(matrix_b, n, device),
-        matrix_c=MatrixExtension.new(matrix_c, n, device),
-        log_n=n.bit_length() - 1,
-    )
+    mats = [MatrixExtension.new(m, n, device) for m in (matrix_a, matrix_b, matrix_c)]
+    fs = Blake2sRng.setup()
+    for m in mats:
+        fs.feed(m.serialize())
+    return IndexPK(*mats, log_n=n.bit_length() - 1, fs_state=fs.get_state())

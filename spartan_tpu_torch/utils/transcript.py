@@ -9,16 +9,24 @@ Fr sampling is arkworks' ``UniformRand``: four LE u64 limbs, the top bit
 masked to the 255-bit width, rejected and redrawn if >= r.
 
 ``get_state``/``set_state`` hand the chain state to the device-resident
-transcript (``protocol/fused.py``) and take it back after a sumcheck phase.
+transcript (``protocol/fused.py``) and take it back after a sumcheck phase,
+and start a prove's transcript from the chain state after the matrices,
+which the index keeps (``protocol/indexer.py``).
+
+Every ``feed`` adds one to ``kernels.LANES[FS_ABSORB][(len(data),)]``, on
+the native and the Python stream alike, so a traced run can tell how many
+bytes the host transcript absorbed, and that no matrix was among them.
 """
 
 from __future__ import annotations
 
 import hashlib
 
+from spartan_tpu_torch import kernels
 from spartan_tpu_torch.host import field as hf
 
 _FR_SHAVE_MASK = (1 << 255) - 1
+FS_ABSORB = "fs_absorb"  # the counter of host feeds in kernels.LANES, keyed by (bytes,)
 
 
 def _blake2s(data: bytes) -> bytes:
@@ -27,8 +35,8 @@ def _blake2s(data: bytes) -> bytes:
 
 class Blake2sRng:
     """Feedable Fiat-Shamir RNG on the host: the native stream where the host
-    library is built (absorbing the serialized matrices is O(nnz) bytes),
-    else the same stream in Python."""
+    library is built (absorbing the serialized matrices, once an index, is
+    O(nnz) bytes), else the same stream in Python."""
 
     def __init__(self):
         from spartan_tpu_torch.host import native
@@ -44,7 +52,8 @@ class Blake2sRng:
         return cls()
 
     def feed(self, data: bytes) -> None:
-        """Absorb serialized bytes."""
+        """Absorb serialized bytes; counted under FS_ABSORB."""
+        kernels.LANES[FS_ABSORB][(len(data),)] += 1
         if self._native is not None:
             self._native.feed(data)
             return

@@ -185,7 +185,7 @@ def test_open_many_matches_jax(keys):
     """One open_many of the four instances of both cases at their points
     (r_v, 0), r_v replayed from each transcript, gives the fixture's
     evaluations and opening proofs."""
-    from spartan_tpu_torch.protocol.argument import _transcript
+    from torch_golden import transcript_from_matrices
 
     pp, _vp = keys
     zs, points, want = [], [], []
@@ -196,7 +196,7 @@ def test_open_many_matches_jax(keys):
         for i, p in zip(c["instances"], c["proofs"]):
             inst = ([_h(x) for x in i["v"]], [_h(x) for x in i["w"]])
             proof = Proof.deserialize(bytes.fromhex(p))
-            fs = _transcript((pk.matrix_a, pk.matrix_b, pk.matrix_c), inst[0])
+            fs = transcript_from_matrices(pk, inst[0])
             fs.feed(proof.prover_first_message.serialize())
             r_v = fs.sample_fr_vec(c["log_v"])
             zs.append(_z(inst))

@@ -25,7 +25,7 @@ import random
 import numpy as np
 import pytest
 import torch
-from torch_golden import GOLDEN, instance, keys, reuse_openings
+from torch_golden import GOLDEN, instance, keys, reuse_openings, transcript_from_matrices
 
 from spartan_tpu_torch import timers
 from spartan_tpu_torch.host import curve as hc
@@ -39,7 +39,7 @@ from spartan_tpu_torch.parallel import sharded, sharded_prove
 from spartan_tpu_torch.protocol import prover as pr
 from spartan_tpu_torch.protocol import sumcheck as sc
 from spartan_tpu_torch.protocol import verifier as vr
-from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS, _transcript
+from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
 from spartan_tpu_torch.protocol.proof import Proof
 from spartan_tpu_torch.utils.errors import SpartanError
 
@@ -89,7 +89,7 @@ def test_sharded_level_of_an_opening_equals_golden(golden, monkeypatch):
 
     monkeypatch.setattr(sharded, "msm", counted)
     want = Proof.deserialize(GOLDEN.read_bytes())
-    fs = _transcript((pk.matrix_a, pk.matrix_b, pk.matrix_c), v)
+    fs = transcript_from_matrices(pk, v)
     fs.feed(want.prover_first_message.serialize())
     r_v = fs.sample_fr_vec(len(v).bit_length() - 1)
     z_rv_0, op = sharded_prove.sharded_open(pp, fo.encode_mont(FR, v + w), list(r_v) + [0] * (5 - len(r_v)),

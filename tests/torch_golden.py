@@ -15,6 +15,8 @@ from spartan_tpu_torch.commitment import scheme
 from spartan_tpu_torch.host import field as hf
 from spartan_tpu_torch.models.synthesizer import generate_circuit_with_random_input
 from spartan_tpu_torch.protocol.argument import MLArgumentForR1CS
+from spartan_tpu_torch.utils import serialize as ser
+from spartan_tpu_torch.utils.transcript import Blake2sRng
 
 GOLDEN = pathlib.Path(__file__).parent / "fixtures" / "proof_2e5_seed3.bin"
 
@@ -32,6 +34,17 @@ def instance():
     cs, v, w = generate_circuit_with_random_input(
         num_public=4, num_private=28, pad_to_square=True, density=1, rng=random.Random(3))
     return MLArgumentForR1CS.index(*cs.to_matrices(), "cpu"), v, w
+
+
+def transcript_from_matrices(pk, v):
+    """A prove's transcript after the public input, absorbing the index's
+    serialized A, B, C from a fresh stream (not from ``pk.fs_state``): a
+    witness of the transcript independent of the state the index keeps."""
+    fs = Blake2sRng.setup()
+    for m in (pk.matrix_a, pk.matrix_b, pk.matrix_c):
+        fs.feed(m.serialize())
+    fs.feed(ser.ser_fr_vec(v))
+    return fs
 
 
 @functools.lru_cache(maxsize=1)

@@ -25,14 +25,13 @@ exits non-zero:
    launched shape, and fr_mul's at every width the prove launches it at
    beside its version before the carry flag; then the sumcheck-phase
    kernels: K5's Blake2s (the yardstick blake2s_batch) against hashlib,
-   the round kernels K6 and K7 with their transcript step (K5) at 2^16
-   pairs and at every width the 2^16 prove launches them at, and the
-   one-block tails at the prove's one shape, each bit-exact against its
-   plain version (every output: tables, evaluations, challenges, pre, the
-   coefficients, the chain state) and timed by device time (CUDA graphs)
-   beside its bound (the two-launch design's times for the same rounds,
-   copied from its record, on lines of their own marked as copied); K6's
-   stage split in cycles (sc1_round_stamped) at one pair and at 2^15 pairs;
+   the round kernels K6 and K7 with their transcript step (K5) at every
+   width the 2^16 prove launches them at, and the one-block tails at the
+   prove's one shape, all on their batch axis: each bit-exact against its
+   plain version at 1, 3 and 64 instances (every instance's outputs:
+   tables, evaluations, challenges, pre, the coefficients, the chain state,
+   round 4's values; the ticket counters and sums back at 0) and timed by
+   device time (CUDA graphs) at 1, 8 and 64 instances beside its bound;
    then K1 and K2 where the prover runs them whole (FUSED_KERNELS), each
    bit-exact against its plain version and timed by device time beside its
    bound: g1_normalize and g2_normalize at 1, 16, 4,096 and 2^16 lanes with
@@ -76,11 +75,7 @@ exits non-zero:
    g1_normalize and one g2_normalize a stage, every kernel of the path at
    least once); the warm batched and sequential wall time and proofs/s
    beside the card's name and power limit; the batched spans, and one
-   batched prove under torch.profiler as in 5. Phase 2 holds the
-   batch-axis kernels (sc1_round_b, prod2_round_b, sc1_tail_b, sc2_tail_b)
-   bit-exact against their plain versions at 1, 3 and 64 instances at
-   every width the batched prove launches them at, and times them at 1, 8
-   and 64 beside their bound.
+   batched prove under torch.profiler as in 5.
 
 7. the sharded prove (``parallel/sharded_prove.py``): phase 4's instance
    on its pk and pp at D = 2 and 4 shards on the card (all on cuda:0, or
@@ -95,9 +90,8 @@ exits non-zero:
 
 The line before the last is a JSON object with one entry per kernel entry
 point (those whose work moved into the fused kernels, launched in no step
-of phase 4's run, carry ``"main_path": false``; the batch-axis kernels'
-launches are those of phase 6's batched prove, the others phase 4's); the
-last line is the contract object with the device.
+of phase 4's run, carry ``"main_path": false``; the launches are phase
+4's); the last line is the contract object with the device.
 """
 
 from __future__ import annotations
@@ -649,40 +643,6 @@ B2S_OPS = 968
 B2S_WORDS = (0, 1, 10, 16, 17, 32, 162)  # block edges, round 4's 32 words, a 2^16 sumcheck-1 round's 162
 B2S_COUNT = 4096  # messages a width in the check against hashlib
 B2S_TIMED = 1 << 16  # messages of 162 words in the timed launch
-# The two-launch design's device ms (CUDA graph) of a round at the 2^16 prove's widths: its round
-# kernel by pairs and its transcript kernel by partials, copied from the record of chip_smoke.py at
-# commit 6f01809 on an NVIDIA H100 80GB HBM3, 700 W. Not measured here: printed only on lines marked
-# as copied, never in the kernels line.
-TWO_LAUNCH_ROUND_MS = {
-    "sc1_round": {1 << 16: 0.03458, 1 << 15: 0.01214, 1 << 14: 0.01563, 1 << 13: 0.01500, 1 << 12: 0.01486, 1 << 11: 0.01436,
-                  1 << 10: 0.01438, 512: 0.01435, 256: 0.01435, 128: 0.01366, 64: 0.01291, 32: 0.01286,
-                  16: 0.01256, 8: 0.01238, 4: 0.01223, 2: 0.01234, 1: 0.01237},
-    "prod2_round": {1 << 16: 0.02125, 1 << 15: 0.00915, 1 << 14: 0.01085, 1 << 13: 0.01047, 1 << 12: 0.01034, 1 << 11: 0.00985,
-                    1 << 10: 0.00976, 512: 0.00990, 256: 0.00982, 128: 0.00921, 64: 0.00891, 32: 0.00886,
-                    16: 0.00871, 8: 0.00868, 4: 0.00867, 2: 0.00865, 1: 0.00863},
-}
-TWO_LAUNCH_STEP_MS = {
-    "sc1_round": {256: 0.02130, 128: 0.02035, 64: 0.01987, 32: 0.01955, 16: 0.01956, 8: 0.01956, 4: 0.01949,
-                  2: 0.01951, 1: 0.01954},
-    "prod2_round": {256: 0.00883, 128: 0.00791, 64: 0.00738, 32: 0.00710, 16: 0.00708, 8: 0.00688, 4: 0.00693,
-                    2: 0.00685, 1: 0.00705},
-}
-TWO_LAUNCH_FINAL_MS = 0.00981  # its round-4 kernel (fs_sc1_final)
-
-
-def _two_launch_ms(name: str, pairs: int) -> float | None:
-    """The two-launch design's copied device ms for the rounds that launch
-    `name` at `pairs` pairs runs (a round: its round kernel and its
-    transcript kernel on that round's partials, 128 pairs a block, at most
-    256 blocks; a tail: the rounds it runs, and round 4's kernel)."""
-    def one(kernel: str, p: int) -> float:
-        return TWO_LAUNCH_ROUND_MS[kernel][p] + TWO_LAUNCH_STEP_MS[kernel][max(1, min(256, -(-p // 128)))]
-
-    if name.endswith("round"):
-        return one(name, pairs) if pairs in TWO_LAUNCH_ROUND_MS[name] else None
-    kernel = "sc1_round" if name.startswith("sc1") else "prod2_round"
-    return (sum(one(kernel, pairs >> k) for k in range(pairs.bit_length()))
-            + (TWO_LAUNCH_FINAL_MS if name.startswith("sc1") else 0.0))
 
 
 def _phase_call(name: str, tensors, ints):
@@ -745,85 +705,10 @@ def _fr_rows(n: int, rng, dev) -> torch.Tensor:
     return _random_field(FR, n + 3, rng, dev)[:, 3:].contiguous()
 
 
-def _phase_args(name: str, pairs: int, fold: bool, rng, dev) -> dict:
-    """Seeded arguments of a round launch (sc1_round, prod2_round: `pairs`
-    pairs) or a tail (sc1_tail, sc2_tail: from `pairs` pairs down), as the
-    wrappers in protocol.fused take them, the outputs zeroed."""
-    from spartan_tpu_torch.protocol import fused
-
-    sc1 = name.startswith("sc1")
-    rounds = pairs.bit_length()
-    words = lambda n: torch.from_numpy(  # noqa: E731
-        rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
-    el = lambda: _fr_rows(1, rng, dev).reshape(8)  # noqa: E731
-    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
-    width = (4 if fold else 2) * pairs
-    a = {f"t{k}": _fr_rows(width, rng, dev) for k in range(3 if sc1 else 2)}
-    d = FS_LOG_N + 3 if sc1 else 3
-    coef = lambda: torch.from_numpy(fused._words(  # noqa: E731
-        fused.first_coef(int(rng.integers(1 << 62)), d - 1))).reshape(6, d, 8).to(dev)
-    if name == "sc1_round":
-        a |= {"s": _fr_rows(pairs, rng, dev), "fold": fold, "consts": fused.emit_consts(FS_LOG_N + 2, dev),
-              "tor_i": el(), "tor_next": el(), "pre": el(), "coef": coef()}
-    elif name == "sc1_tail":
-        a |= {"s_cat": torch.cat([_fr_rows(pairs >> k, rng, dev).reshape(-1) for k in range(rounds)]),
-              "fold": fold, "consts": fused.emit_consts(FS_LOG_N + 2, dev),
-              "tor": _fr_rows(rounds, rng, dev).t().contiguous(), "pre": el(), "coef": coef()}
-    else:
-        a["fold"] = fold
-    a["state"] = words(8)
-    if name.endswith("round"):
-        a |= {"evals": z(d, 8), "r_out": z(8), "r_mont": el()}
-    else:
-        a |= {"evals": z(rounds, d, 8), "rs": z(rounds, 8), "r_mont": el()}
-    if name == "sc1_tail":
-        a |= {"vabc": z(3, 8), "rabc": z(3, 8)}
-    return a
-
-
-def _run(name: str, a: dict, plain: bool):
-    """The wrapper (a launch, counted) or its plain version on `a`, in place;
-    returns the tables a round hands on."""
-    from spartan_tpu_torch.protocol import fused
-
-    args = list(a.values())
-    if name.endswith("round") and not plain:
-        ctr = torch.zeros(8, dtype=torch.int32, device=args[0].device)
-        sums = torch.zeros((fused.SUMS_ROWS, 8), dtype=torch.int32, device=args[0].device)
-        return getattr(fused, name)(*args, ctr, sums)
-    return getattr(fused, name + ("_plain" if plain else ""))(*args)
-
-
-def _direct_args(name: str, a: dict):
-    """The entry point's tensors and ints for a direct call on `a`."""
-    from spartan_tpu_torch.protocol import fused
-
-    v = {k: x for k, x in a.items() if k != "fold"}
-    fold = a["fold"]
-    tabs = [v.pop(f"t{k}") for k in range(3 if name.startswith("sc1") else 2)]
-    dev = tabs[0].device
-    if name.endswith("tail"):
-        pairs = tabs[0].shape[-1] // (4 if fold else 2)
-        d = [v["consts"].shape[1]] if name == "sc1_tail" else []
-        head = [*tabs, v.pop("s_cat"), v.pop("consts"), v.pop("tor")] if name == "sc1_tail" else tabs
-        return [*head, *v.values()], [pairs, int(fold), pairs.bit_length(), *d]
-    pairs = tabs[0].shape[-1] // (4 if fold else 2)
-    outs = [torch.empty((8, 2 * pairs), dtype=torch.int32, device=dev) for _ in tabs] if fold else tabs
-    ctr = torch.zeros(8, dtype=torch.int32, device=dev)
-    sums = torch.zeros((fused.SUMS_ROWS, 8), dtype=torch.int32, device=dev)
-    head = ([*tabs, v.pop("s"), v.pop("consts"), v.pop("tor_i"), v.pop("tor_next")] if name == "sc1_round"
-            else tabs)
-    d = [FS_LOG_N + 3] if name == "sc1_round" else []
-    return [*head, *v.values(), ctr, *outs, sums], [pairs, int(fold), fused.round_blocks(pairs), *d]
-
-
-def _phase_cost(name: str, pairs: int, fold: bool, compressions: int):
-    """(Fr products, other 32-bit instructions, bytes) of a launch of these
-    arguments: each table read once, the folded tables and the transcript
-    step's outputs written once; the Blake2s compressions it ran
-    (its samples' rejected draws counted). A tail is its rounds' sum."""
-    from spartan_tpu_torch.protocol import fused
-
+def _phase_cost(name: str, pairs: int, fold: bool):
+    """(Fr products, bytes) of one instance's launch of these arguments:
+    each table read once, the folded tables and the transcript step's
+    outputs written once. A tail is its rounds' sum."""
     sc1 = name.startswith("sc1")
     nt, d = (3, FS_LOG_N + 3) if sc1 else (2, 3)
     products = nbytes = 0
@@ -836,7 +721,7 @@ def _phase_cost(name: str, pairs: int, fold: bool, compressions: int):
         nbytes += 32 * (nt * (4 if f else 2) * p + (p if sc1 else 0) + (5 * d if sc1 else 0) + d + 3)
         if name.endswith("round"):
             nbytes += 32 * nt * 2 * p * f
-    return products, compressions * B2S_OPS, nbytes
+    return products, nbytes
 
 
 def _draws(state: torch.Tensor, n: int = 1) -> int:
@@ -850,137 +735,15 @@ def _draws(state: torch.Tensor, n: int = 1) -> int:
     return draws
 
 
-def _phase_widths(name: str):
-    """(pairs, fold) of every launch of `name` in the 2^16 prove (from
-    protocol.fused's schedule), the round kernels also at 2^16 pairs."""
-    from spartan_tpu_torch.protocol import fused
-
-    i0 = fused.tail_start(FS_LOG_N)
-    if name.endswith("tail"):
-        return [(1 << (FS_LOG_N - 1 - i0), i0 > 0)]
-    return [(1 << 16, True)] + [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(i0)]
-
-
-def _phase_row(name: str, card: Card, rng, dev) -> dict:
-    """A round kernel (with its transcript step) or a tail against its plain
-    version at every width the 2^16 prove launches it at, every output
-    bit-exact, and its device time (CUDA graph) beside the bound (and, on a
-    line marked as copied, the two-launch design's recorded time for the
-    same rounds); the row's times are those at the first width."""
-    from spartan_tpu_torch import kernels
-
-    row, widths = None, []
-    for pairs, fold in _phase_widths(name):
-        a = _phase_args(name, pairs, fold, rng, dev)
-        mine, ref = ({k: (v.clone() if torch.is_tensor(v) else v) for k, v in a.items()} for _ in range(2))
-        got, want = _run(name, mine, False), _run(name, ref, True)
-        same = all(torch.equal(mine[k], ref[k]) for k in a if torch.is_tensor(a[k]))
-        if name.endswith("round") and fold:
-            same = same and all(torch.equal(x, y) for x, y in zip(got, want))
-        check(same, f"{name} pairs={pairs} fold={fold}: kernel disagrees with its plain version")
-        sc1 = name.startswith("sc1")
-        n_rounds = 1 if name.endswith("round") else pairs.bit_length()
-        msg_words = 10 + 8 * ((FS_LOG_N + 3) if sc1 else 3)
-        # the absorbs' compressions and the samples' draws (a tail's rounds counted at one draw each)
-        compressions = n_rounds * _compressions(msg_words)
-        if name.endswith("round"):
-            compressions += _draws(ref["state"])
-        else:
-            compressions += n_rounds + (_compressions(32) + _draws(ref["state"], 3) if sc1 else 0)
-        tensors, ints = _direct_args(name, a)
-        call = _phase_call(name, tensors, ints)
-        w = {"pairs": pairs, "fold": fold, "device_ms": _graph_ms_of(call)}
-        products, int_ops, nbytes = _phase_cost(name, pairs, fold, compressions)
-        w["bound_ms"], w["bound_by"] = card.bound(products * FR_PRODUCT, nbytes, int_ops)
-        print(f"{name} pairs={pairs} fold={int(fold)} bit-exact: device {w['device_ms']:.5f} ms  "
-              f"bound {w['bound_ms']:.5f} ms ({w['bound_by']})", flush=True)
-        copied = _two_launch_ms(name, pairs)
-        if copied is not None:
-            print(f"  copied, not measured in this run: the two-launch design (6f01809) for the same "
-                  f"rounds {copied:.5f} ms", flush=True)
-        widths.append(w)
-        if row is None:
-            src, rep, _nt, _ni = kernels.PHASE_KERNELS[name]
-            plain_ms = cuda_ms(lambda: _run(name, {k: (v.clone() if torch.is_tensor(v) else v)
-                                                   for k, v in a.items()}, True), 2)
-            row = {"name": name, "route": "cuda", "source": f"spartan_tpu_torch/csrc/{src}", "replaces": rep,
-                   "max_abs_err": 0, "ms": cuda_ms(call, 20), "plain_ms": plain_ms, "bound_ms": w["bound_ms"],
-                   "bound_by": w["bound_by"], "library_ms": None, "device_ms": w["device_ms"]}
-    row["widths"] = widths
-    prove = widths[1:] if name.endswith("round") else widths
-    print(f"{name} over the 2^16 prove's {len(prove)} launches by device time: "
-          f"{sum(x['device_ms'] for x in prove):.4f} ms, bound {sum(x['bound_ms'] for x in prove):.5f} ms",
-          flush=True)
-    print(f"  copied, not measured in this run: the two-launch design (6f01809) for the same rounds "
-          f"{sum(_two_launch_ms(name, x['pairs']) for x in prove):.4f} ms", flush=True)
-    return row
-
-
-STAGES = {0: "loads", 1: "fold", 2: "evaluation products", 3: "warp sums", 4: "block sum",
-          5: "partial sums and ticket", 6: "the last block's sums", 7: "evaluations", 48: "sampler", 49: "pre"}
-
-
-def _stamp_split(card: Card, rng, dev) -> None:
-    """K6 and its transcript step by stage (sc1_round_stamped: clock64() at
-    the stage boundaries of thread 0 of each block) at one pair (folding)
-    and at 2^15 pairs (the prove's first round): the cycles of block 0's
-    round stages and of the last block's transcript step, one compression
-    at a time, with microseconds at clocks.max.sm."""
-    from spartan_tpu_torch import kernels
-
-    for pairs, fold in ((1, True), (1 << 15, False)):
-        a = _phase_args("sc1_round", pairs, fold, rng, dev)
-        tensors, ints = _direct_args("sc1_round", a)
-        blocks = ints[2]
-        stamps = torch.zeros((blocks, 64), dtype=torch.int64, device=dev)
-        fn = getattr(kernels.load(), "spk_sc1_round_stamped")
-        runs = []
-        for _ in range(4):
-            stamps.zero_()
-            rc = fn(*[t.data_ptr() for t in tensors], stamps.data_ptr(), *ints,
-                    torch.cuda.current_stream().cuda_stream)
-            check(rc == 0, f"sc1_round_stamped: cudaGetLastError() = {rc}")
-            torch.cuda.synchronize()
-            runs.append(stamps.cpu().numpy())
-        st = runs[-1]
-        last = int(np.argmax(st[:, 7]))  # the block that ran the transcript step
-        comp = [int(c) for c in st[last, 8:48] if c > 0]
-        us = lambda c: c / card.max_sm_mhz  # noqa: E731
-        head = ", ".join(f"{STAGES[k]} {int(st[0, k])}" for k in range(5))
-        tail = ", ".join(f"{STAGES[k]} {int(st[last, k])}" for k in (5, 6, 7))
-        print(f"stamps sc1_round pairs={pairs} fold={int(fold)} blocks={blocks}: cycles (block 0) {head}; "
-              f"(block {last}, the transcript step) {tail}, compressions {comp}, sampler {int(st[last, 48])}, "
-              f"pre {int(st[last, 49])}; block 0 round total {int(st[0, :5].sum())} = {us(st[0, :5].sum()):.2f} us, "
-              f"the step {int(st[last, 5:50].sum())} = {us(st[last, 5:50].sum()):.2f} us; a compression "
-              f"{np.mean(comp[1:] or comp):.0f} cycles = {us(np.mean(comp[1:] or comp)):.3f} us", flush=True)
-
-
-def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
-    """The sumcheck-phase kernels: K5's Blake2s against hashlib
-    (blake2s_batch), K6 and K7 with their transcript step at 2^16 pairs and
-    the prove's widths, the tails at the prove's one shape, each bit-exact
-    against its plain version on the card, and K6's stage stamps."""
-    rng = np.random.default_rng(seed)
-    _blake2s_yardstick(card, rng, dev)
-    rows = [_phase_row(name, card, rng, dev) for name in PHASE_PATH]
-    _stamp_split(card, rng, dev)
-    return rows
-
-
-# ---------------------------------------------------------------------------
-# Phase 2, continued: the sumcheck-phase kernels on a batch axis (prove_many)
-# ---------------------------------------------------------------------------
-
-BATCH_PATH = ("sc1_round_b", "prod2_round_b", "sc1_tail_b", "sc2_tail_b")
 BATCH_B = 64  # the batched phase's instances: BASELINE.json:11's 64 independent 2^16 instances
-BATCH_CHECK_B = (1, 3, 64)  # instances a batch-axis launch is held bit-exact at
+BATCH_CHECK_B = (1, 3, 64)  # instances a launch is held bit-exact at (1: the single prove)
 BATCH_TIMED_B = (1, 8, 64)  # and timed at; the row's numbers are those at BATCH_B
 
 
-def _batch_widths(name: str):
-    """(pairs, fold) of every launch of batch-axis kernel `name` in the
-    2^16 batched prove (protocol.fused's schedule: the rounds up to the
-    tail, then the tail)."""
+def _phase_widths(name: str):
+    """(pairs, fold) of every launch of `name` in a 2^16 prove, single or
+    batched (protocol.fused's schedule: the rounds up to the tail, then the
+    tail)."""
     from spartan_tpu_torch.protocol import fused
 
     i0 = fused.tail_start(FS_LOG_N)
@@ -989,9 +752,9 @@ def _batch_widths(name: str):
     return [(1 << (FS_LOG_N - 1 - i), i > 0) for i in range(i0)]
 
 
-def _batch_args(name: str, pairs: int, fold: bool, bsz: int, seed: int, dev) -> dict:
-    """Seeded arguments of a batch-axis launch of `name` for bsz instances,
-    laid out as protocol.fused's batched phases lay them out: tables (B, 8,
+def _phase_args(name: str, pairs: int, fold: bool, bsz: int, seed: int, dev) -> dict:
+    """Seeded arguments of a launch of `name` for bsz instances, laid out
+    as protocol.fused's phases lay them out: tables (B, 8,
     n); the weights at an instance stride of their own, wider than a
     table's; the transcript arrays views of one fused._Buffer with a copy an
     instance. The same seed gives the same arguments."""
@@ -1028,21 +791,21 @@ def _batch_args(name: str, pairs: int, fold: bool, bsz: int, seed: int, dev) -> 
     return a
 
 
-def _run_b(name: str, a: dict, plain: bool):
-    """The batch-axis wrapper (a launch, counted) or its plain version on
-    `a`, in place; returns the tables a round hands on."""
+def _run(name: str, a: dict, plain: bool):
+    """The wrapper (a launch, counted) or its plain version on `a`, in
+    place; returns the tables a round hands on."""
     from spartan_tpu_torch.protocol import fused
 
     buf, rounds = a["buf"], a["rounds"]
     v = {k: buf.views(k) for k in buf.offsets}
     evals = v["evals"].view(buf.copies, rounds, a["d"], 8)
     consts = fused.emit_consts(FS_LOG_N + 2, a["tabs"][0].device)
-    if name == "sc1_round_b":
+    if name == "sc1_round":
         args = (*a["tabs"], a["s"], a["fold"], consts, v["tor"][:, 0], v["tor"][:, 1], v["pre"],
                 v["coef"].view(buf.copies, 6, a["d"], 8), v["state"], evals[:, 0], v["rs"][:, 0], v["r_mont"])
-    elif name == "prod2_round_b":
+    elif name == "prod2_round":
         args = (*a["tabs"], a["fold"], v["state"], evals[:, 0], v["rs"][:, 0], v["r_mont"])
-    elif name == "sc1_tail_b":
+    elif name == "sc1_tail":
         args = (*a["tabs"], a["s"], a["fold"], consts, v["tor"][:, :rounds], v["pre"],
                 v["coef"].view(buf.copies, 6, a["d"], 8), v["state"], evals, v["rs"], v["r_mont"], v["vabc"],
                 v["rabc"])
@@ -1050,15 +813,15 @@ def _run_b(name: str, a: dict, plain: bool):
         args = (*a["tabs"], a["fold"], v["state"], evals, v["rs"], v["r_mont"])
     if plain:
         return getattr(fused, name + "_plain")(*args)
-    if name.endswith("round_b"):
+    if name.endswith("round"):
         return getattr(fused, name)(*args, v["ctr"], v["sums"])
     return getattr(fused, name)(*args)
 
 
-def _batch_row(name: str, card: Card, dev, seed: int = 8642) -> dict:
-    """A batch-axis kernel against its plain version (each instance's
-    single-instance plain version) at B in BATCH_CHECK_B, at every width
-    the batched 2^16 prove launches it at: every instance's outputs
+def _phase_row(name: str, card: Card, dev, seed: int = 8642) -> dict:
+    """A sumcheck-phase kernel against its plain version (each instance's
+    plain round or tail) at B in BATCH_CHECK_B, at every width the 2^16
+    prove launches it at: every instance's outputs
     bit-exact (tables, evaluations, challenges, pre, coefficients, chain
     state, round 4's values; the ticket counters and sums back at 0). Its
     device time (CUDA graph of 20 wrapper calls) at B in BATCH_TIMED_B,
@@ -1066,45 +829,45 @@ def _batch_row(name: str, card: Card, dev, seed: int = 8642) -> dict:
     row's numbers at BATCH_B and the first width."""
     from spartan_tpu_torch import kernels
 
-    single, sc1 = name[:-2], name.startswith("sc1")
+    sc1 = name.startswith("sc1")
     row, widths = None, []
-    for pairs, fold in _batch_widths(name):
+    for pairs, fold in _phase_widths(name):
         for bsz in sorted(set(BATCH_CHECK_B) | set(BATCH_TIMED_B)):
             wseed = seed + 131 * pairs + 7 * bsz + int(fold)
-            mine = _batch_args(name, pairs, fold, bsz, wseed, dev)
-            got = _run_b(name, mine, False)
+            mine = _phase_args(name, pairs, fold, bsz, wseed, dev)
+            got = _run(name, mine, False)
             w = {"pairs": pairs, "fold": fold, "B": bsz}
             if bsz in BATCH_CHECK_B:
-                ref = _batch_args(name, pairs, fold, bsz, wseed, dev)
+                ref = _phase_args(name, pairs, fold, bsz, wseed, dev)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                want = _run_b(name, ref, True)
+                want = _run(name, ref, True)
                 torch.cuda.synchronize()
                 w["plain_ms"] = (time.perf_counter() - t) * 1e3
                 same = torch.equal(mine["buf"].dev, ref["buf"].dev)
-                if name.endswith("round_b") and fold:
+                if name.endswith("round") and fold:
                     same = same and all(torch.equal(x, y) for x, y in zip(got, want))
                 check(same, f"{name} pairs={pairs} fold={fold} B={bsz}: kernel disagrees with its plain version")
                 ctr = mine["buf"].views("ctr")
                 check(not ctr.any() and not mine["buf"].views("sums").any(),
                       f"{name} pairs={pairs} B={bsz}: ticket counters or sums not back at 0")
             if bsz in BATCH_TIMED_B:
-                w["device_ms"] = _graph_ms_of(lambda: _run_b(name, mine, False))
+                w["device_ms"] = _graph_ms_of(lambda: _run(name, mine, False))
                 if bsz == BATCH_B:
-                    w["ms"] = cuda_ms(lambda: _run_b(name, mine, False), 10)
-            # each instance's work as the single-instance rows count it, its draws from its chain state
+                    w["ms"] = cuda_ms(lambda: _run(name, mine, False), 10)
+            # each instance's work (_phase_cost) and compressions, its draws from its chain state
             states = mine["buf"].views("state").reshape(bsz, 8).cpu()
-            n_rounds = 1 if name.endswith("round_b") else pairs.bit_length()
+            n_rounds = 1 if name.endswith("round") else pairs.bit_length()
             msg_words = 10 + 8 * ((FS_LOG_N + 3) if sc1 else 3)
             compressions = bsz * n_rounds * _compressions(msg_words)
             for st in states:
-                if name.endswith("round_b"):
+                if name.endswith("round"):
                     compressions += _draws(st)
                 else:
                     compressions += n_rounds + (_compressions(32) + _draws(st, 3) if sc1 else 0)
-            products, int_ops, nbytes = _phase_cost(single, pairs, fold, 0)
+            products, nbytes = _phase_cost(name, pairs, fold)
             w["bound_ms"], w["bound_by"] = card.bound(bsz * products * FR_PRODUCT, bsz * nbytes,
-                                                      compressions * B2S_OPS + bsz * int_ops)
+                                                      compressions * B2S_OPS)
             print(f"{name} pairs={pairs} fold={int(fold)} B={bsz}"
                   + (" bit-exact" if bsz in BATCH_CHECK_B else "")
                   + (f": device {w['device_ms']:.5f} ms" if "device_ms" in w else "")
@@ -1120,15 +883,18 @@ def _batch_row(name: str, card: Card, dev, seed: int = 8642) -> dict:
     row["widths"] = widths
     for bsz in BATCH_TIMED_B:
         at = [x for x in widths if x["B"] == bsz]
-        print(f"{name} B={bsz} over the batched 2^16 prove's {len(at)} launches by device time: "
+        print(f"{name} B={bsz} over the 2^16 prove's {len(at)} launches by device time: "
               f"{sum(x['device_ms'] for x in at):.4f} ms, bound {sum(x['bound_ms'] for x in at):.5f} ms", flush=True)
     return row
 
 
-def phase_batch_kernels(dev, card: Card) -> list:
-    """The batch-axis sumcheck kernels, each against its plain version at
-    every width of the batched 2^16 prove, at 1, 3 and 64 instances."""
-    return [_batch_row(name, card, dev) for name in BATCH_PATH]
+def phase_fs_kernels(dev, card: Card, seed: int = 4321) -> list:
+    """The sumcheck-phase kernels: K5's Blake2s against hashlib
+    (blake2s_batch), then K6 and K7 with their transcript step and the
+    tails at the 2^16 prove's widths, each bit-exact against its plain
+    version on the card at 1, 3 and 64 instances."""
+    _blake2s_yardstick(card, np.random.default_rng(seed), dev)
+    return [_phase_row(name, card, dev) for name in PHASE_PATH]
 
 
 # ---------------------------------------------------------------------------
@@ -1243,8 +1009,9 @@ def _eq_row(card: Card, rng, dev) -> dict:
 
     ts = _fr_rows(EQ_NV, rng, dev).contiguous()
     widths = []
-    for tables, wrap, plain in ((EQ_NV + 1, mle.eq_suffix_tables_mont, mle.eq_suffix_tables_plain),
-                                (1, lambda t: [mle.eq_table(t)], lambda t: [mle.eq_table_plain(t)])):
+    for tables, wrap, plain in ((EQ_NV + 1, lambda t: [x[0] for x in mle.eq_suffix_tables_mont(t[None])],
+                                 mle.eq_suffix_tables_plain),
+                                (1, lambda t: [mle.eq_table(t[None])[0]], lambda t: [mle.eq_table_plain(t)])):
         got, want = wrap(ts), plain(ts)
         check(len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want)),
               f"eq_tables nv={EQ_NV} tables={tables}: kernel disagrees with its plain version")
@@ -1420,8 +1187,9 @@ def phase_jax_phases(dev) -> None:
         log_n = int(key)
         tabs, tor, state = _phase_inputs(log_n)
         mont = [fo.encode_mont(FR, t, dev) for t in tabs]
-        r1 = fused.sc1_phase(*mont[:3], mle.eq_suffix_tables(tor, dev), tor, state)
-        r2 = fused.sc2_phase(mont[3], mont[4], state)
+        suffix = [t[None] for t in mle.eq_suffix_tables(tor, dev)]
+        (r1,) = fused.sc1_phase(*(t[None] for t in mont[:3]), suffix, [tor], [state])  # B = 1, as the prove
+        (r2,) = fused.sc2_phase(mont[3][None], mont[4][None], [state])
         check(r1.evals == [ints(e) for e in want["sc1"]["evals"]] and r1.rs == ints(want["sc1"]["rs"])
               and r1.vabc == ints(want["sc1"]["vabc"]) and r1.rabc == ints(want["sc1"]["rabc"])
               and r1.state.hex() == want["sc1"]["state"], f"sumcheck 1 at log_n={log_n} differs from spartan_tpu's")
@@ -1429,9 +1197,9 @@ def phase_jax_phases(dev) -> None:
               and r2.state.hex() == want["sc2"]["state"], f"sumcheck 2 at log_n={log_n} differs from spartan_tpu's")
     launched = {k: sorted((list(key), m - before[k].get(key, 0)) for key, m in kernels.LANES[k].items()
                           if m > before[k].get(key, 0)) for k in PHASE_PATH}
-    blocks = sorted({fused.round_blocks(p) for p, _f in (key for key, _m in launched["sc1_round"])})
+    blocks = sorted({fused.round_blocks(p, b) for p, _f, b in (key for key, _m in launched["sc1_round"])})
     print(f"jax phases: both sumcheck phases on the card equal spartan_tpu's at log_n = {', '.join(fixture)} "
-          f"({os.path.basename(PHASES_FIXTURE)}); launches [[pairs, fold], n] {json.dumps(launched)}; "
+          f"({os.path.basename(PHASES_FIXTURE)}); launches [[pairs, fold, B], n] {json.dumps(launched)}; "
           f"round launches of {blocks} blocks", flush=True)
 
 
@@ -1576,7 +1344,7 @@ BATCH_SPANS = ("Batch Prove 0: encode z", "Batch Prove 1: commits", "Batch Prove
                "Batch Prove 6: opens z(r_y)")
 
 
-def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) -> dict:
+def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) -> None:
     """prove_many of bsz distinct instances of phase 4's circuit (circuit
     seeds 0 .. bsz - 1 at density 0 give one set of matrices and their own v
     and w; built in a pool of processes) on phase 4's pk and pp. Every
@@ -1585,7 +1353,7 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
     by entry point (18 sumcheck launches; one g1_normalize and one
     g2_normalize a stage) are asserted. Prints the warm batched and the
     sequential wall time and proofs/s, the batched spans, and (phase_profile)
-    device time by entry point. Returns the batched run's launches."""
+    device time by entry point."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1618,19 +1386,19 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
     kernels.reset_counts()
     proofs, cold_s = timed(lambda: prove_many(pk, instances, pp))
     launches = dict(kernels.LAUNCHES)
-    widths = {k: sorted([list(key), m] for key, m in kernels.LANES[k].items()) for k in BATCH_PATH}
+    widths = {k: sorted([list(key), m] for key, m in kernels.LANES[k].items()) for k in PHASE_PATH}
     print("batched: launches by entry point " + json.dumps({k: m for k, m in sorted(launches.items()) if m}),
           flush=True)
-    print("batched: the batch-axis kernels' launches [[pairs, fold, B], n] " + json.dumps(widths), flush=True)
+    print("batched: the sumcheck kernels' launches [[pairs, fold, B], n] " + json.dumps(widths), flush=True)
     i0 = fused.tail_start(log_n)
-    for k in BATCH_PATH:
+    for k in PHASE_PATH:
         want = 1 if "tail" in k else i0
         check(launches.get(k, 0) == want, f"{k}: {launches.get(k, 0)} launches in the batched prove, not {want}")
-    sumcheck = sum(launches.get(k, 0) for k in (*PHASE_PATH, *BATCH_PATH))
+    sumcheck = sum(launches.get(k, 0) for k in PHASE_PATH)
     check(sumcheck == 18, f"the batched prove launched {sumcheck} sumcheck kernels, not 18")
     for k, stages in (("g1_normalize", 1), ("g2_normalize", 2)):
         check(launches.get(k, 0) == stages, f"{k}: {launches.get(k, 0)} launches, not one a stage ({stages})")
-    for k in (*kernels.KERNELS, *BATCH_PATH, *FUSED_PATH):
+    for k in (*kernels.KERNELS, *PHASE_PATH, *FUSED_PATH):
         if k not in MOVED:
             check(launches.get(k, 0) > 0, f"kernel {k} never launched in the batched prove")
     print(f"batched: sumcheck launches {sumcheck} (B = {bsz}); g1_normalize {launches['g1_normalize']}, "
@@ -1673,7 +1441,6 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
     for label in BATCH_SPANS[4:7:2]:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one at the end "
               "of the phase")
-    return launches
 
 
 SHARDED_D = (2, 4)  # shards of phase 7's sharded proves
@@ -1941,7 +1708,6 @@ def main() -> int:
         rows = phase_kernels(dev, card)
         rows += phase_fs_kernels(dev, card)
         rows += phase_fused_kernels(dev, card)
-        rows += phase_batch_kernels(dev, card)
     print(f"phase 2: {clocks.summary()}; bounds at clocks.max.sm {card.max_sm_mhz:.0f} MHz, "
           f"{card.sms} SMs", flush=True)
     phase_golden(dev)
@@ -1954,10 +1720,10 @@ def main() -> int:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one "
               "at the end of the phase")
     phase_profile(host_loop(prove), "host loop", warm=3)
-    batch_launches = phase_batched(dev, card, keys)
+    phase_batched(dev, card, keys)
     phase_sharded(dev, keys, instance, prove)
     for row in rows:
-        row["launches"] = batch_launches.get(row["name"], 0) if row["name"] in BATCH_PATH else launches[row["name"]]
+        row["launches"] = launches[row["name"]]
         row["main_path"] = row["name"] not in MOVED or row["launches"] > 0
         check(row["launches"] > 0 or not row["main_path"], f"kernel {row['name']} never launched in the main path")
     print("main path: entry points whose work the fused kernels took over, launched none in its run: "

@@ -91,16 +91,10 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], ui
 #undef SPK_B2S_ROUND
 #undef SPK_B2S_G
 
-struct NoMark {
-  __device__ __forceinline__ void operator()(const uint32_t*) const {}
-};
-
 // out = blake2s of the nwords words at msg (byte length 4 nwords). The last
 // block is zero-padded and takes the final flag, also when it is full; an
-// empty message is one zero block. mark(h) runs after each compression (the
-// cycle stamps of sumcheck.cuh's timing entry point).
-template <class Mark = NoMark>
-__device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint32_t out[8], Mark mark = Mark()) {
+// empty message is one zero block.
+__device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint32_t out[8]) {
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = iv(i);
@@ -115,7 +109,6 @@ __device__ __forceinline__ void hash_words(const uint32_t* msg, int nwords, uint
       m[j] = w < nwords ? msg[w] : 0u;
     }
     compress(h, m, last ? 4u * (uint32_t)nwords : 64u * (uint32_t)(k + 1), last);
-    mark(h);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = h[i];

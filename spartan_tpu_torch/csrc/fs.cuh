@@ -36,12 +36,6 @@ constexpr int kMsgWords = 10 + 8 * kMaxEvals;  // state, prefix, evaluations
 
 using sck::Acc;
 
-// The stage stamps of the timing entry point (sumcheck.cuh); NoMark's calls
-// compile to nothing.
-struct NoMark {
-  __device__ __forceinline__ void operator()(int, const uint32_t* = nullptr, int = 0) {}
-};
-
 // A sumcheck-1 step's coefficients, in shared memory: this round's K_k(t)
 // canonical and K_k(t) R; the next round's brackets pre c_k(t) l'(t) R and
 // its R multiple (l' the next round's eq factor); tor_i canonical, pre R,
@@ -111,14 +105,10 @@ __device__ __forceinline__ void sc1_evals(const Sc1Coeffs& c, const Acc* q, int 
 }
 
 // One thread: absorb msg (nwords words, the chain state first) into st and
-// sample the challenge r (canonical). Marks each compression from stage 8
-// on, and the sampler at 48.
-template <class Mark>
-__device__ __forceinline__ void absorb_sample(const uint32_t* msg, int nwords, uint32_t st[8], Fr& r, Mark& mark) {
-  int stage = 8;
-  b2s::hash_words(msg, nwords, st, [&](const uint32_t* h) { mark(stage++, h, 8); });
+// sample the challenge r (canonical).
+__device__ __forceinline__ void absorb_sample(const uint32_t* msg, int nwords, uint32_t st[8], Fr& r) {
+  b2s::hash_words(msg, nwords, st);
   b2s::sample_fr<FrParams>(st, 0u, r.v);
-  mark(48, r.v, 8);
 }
 
 // The message's head: the chain state and ser_fr_vec's u64 length prefix.
@@ -132,11 +122,9 @@ __device__ __forceinline__ void msg_head(uint32_t* msg, const uint32_t st[8], in
 // Thread 0 after sc1_evals: absorb (msg's head written here), sample r_i
 // (canonical, into r and c.r) and leave tor_i r (canonical, mul(tor R, r))
 // in c for sc1_next.
-template <class Mark>
-__device__ __forceinline__ void sc1_sample(Sc1Coeffs& c, const Fr& tor, uint32_t* msg, int D, uint32_t st[8], Fr& r,
-                                           Mark& mark) {
+__device__ __forceinline__ void sc1_sample(Sc1Coeffs& c, const Fr& tor, uint32_t* msg, int D, uint32_t st[8], Fr& r) {
   msg_head(msg, st, D);
-  absorb_sample(msg, 10 + 8 * D, st, r, mark);
+  absorb_sample(msg, 10 + 8 * D, st, r);
   c.r = r;
   c.t2 = sck::mul(tor, r);
 }
@@ -167,9 +155,8 @@ __device__ __forceinline__ void sc1_next(Sc1Coeffs& c, int D, uint32_t* coef, ui
 // A sumcheck-2 step, warp 0: the three evaluations q(t) R^-1, canonical, to
 // evals (3, 8) and msg (acc_mul with y = 1 and y R = R mod r), then thread 0
 // absorbs them with their prefix and samples r.
-template <class Mark>
-__device__ __forceinline__ void sc2_step(const Acc* q, uint32_t st[8], uint32_t* evals, uint32_t* msg, Fr& r, Fr& rm,
-                                         Mark& mark) {
+__device__ __forceinline__ void sc2_step(const Acc* q, uint32_t st[8], uint32_t* evals, uint32_t* msg, Fr& r,
+                                         Fr& rm) {
   using namespace sck;
   const int lane = threadIdx.x & 31;
   if (lane < 3) {
@@ -178,10 +165,9 @@ __device__ __forceinline__ void sc2_step(const Acc* q, uint32_t st[8], uint32_t*
     store8(msg + 10 + lane * 8, ev);
   }
   __syncwarp();
-  mark(7, msg + 10, 8);
   if (lane == 0) {
     msg_head(msg, st, 3);
-    absorb_sample(msg, 10 + 8 * 3, st, r, mark);
+    absorb_sample(msg, 10 + 8 * 3, st, r);
     rm = mul(r, fr_const(SPK_FR_R2));
   }
 }

@@ -10,8 +10,8 @@
 // (pallas_field.py:254/258/262) and a reduction over the table for every
 // evaluation.
 //
-// What bounds a round on the H100 (PERF.md, from the cycle stamps of
-// the timing entry point): below a few thousand pairs, latency. One thread's
+// What bounds a round on the H100 (PERF.md, from clock64() stamps taken at
+// its stages): below a few thousand pairs, latency. One thread's
 // Fr product (fp_cc.cuh) is about 1,000-1,500 cycles, and the two-launch
 // design's kernel ran twelve of them a pair on one thread: at one pair the
 // fold took 8,900 cycles and the three evaluations 7,100 of 22,600; the sums
@@ -36,6 +36,17 @@
 // the entering tables from device memory). At 2^16 a phase is 8 round
 // launches and one tail. Tables are (8, N) limb-major Montgomery, as
 // everywhere in the port.
+//
+// The batch axis: every kernel runs B instances of one circuit in one launch,
+// each with its own tables, weights, transcript and ticket (one instance is
+// B = 1). A round's grid is (blocks, B) with blockIdx.y the instance, so
+// gridDim.x, which round_sums counts tickets against, is the blocks of one
+// instance; a tail's grid is B blocks, one an instance, each with its own
+// dynamic shared memory. The bodies run one instance on pointers offset to
+// it: a table by its (8, n) size, the weights by s_stride words, and every
+// transcript array (pre, coef, state, evals, r_out or rs, r_mont, tor, vabc,
+// rabc, ctr, sums) by ist words, the size of one instance's copy of the
+// phase's buffer.
 #pragma once
 
 #include "fs.cuh"
@@ -46,7 +57,6 @@ constexpr int kThreads = 128;      // a round kernel's block: 32 pairs, four lan
 constexpr int kMaxBlocks = 1024;   // a round kernel's grid at most; a block loops over the pairs beyond
 constexpr int kTailPairs = 128;    // the tail takes over at the first round of at most this many pairs
 constexpr int kTailThreads = 256;  // the tail's block at most
-constexpr int kStamps = 64;        // stamps a block in the timing entry point
 
 template <int NT, class T>
 __device__ __forceinline__ T pick(const T (&a)[NT], int k) {
@@ -68,24 +78,20 @@ struct Tabs {
 
 // Lane k's table pair b: folded by r from entries 4b..4b+3 (and written at
 // 2b, 2b+1 of the output), or read at 2b, 2b+1 as it is.
-template <int NT, class Mark>
-__device__ __forceinline__ void pair_of(const Tabs<NT>& tb, int k, int64_t b, bool fold, const Fr& r, Fr& e, Fr& o,
-                                        Mark& mark) {
+template <int NT>
+__device__ __forceinline__ void pair_of(const Tabs<NT>& tb, int k, int64_t b, bool fold, const Fr& r, Fr& e, Fr& o) {
   const uint32_t* in = pick<NT>(tb.in, k);
   if (fold) {
     const Fr x0 = fe_load<FrParams>(in, tb.n_in, 4 * b), x1 = fe_load<FrParams>(in, tb.n_in, 4 * b + 1);
     const Fr x2 = fe_load<FrParams>(in, tb.n_in, 4 * b + 2), x3 = fe_load<FrParams>(in, tb.n_in, 4 * b + 3);
-    mark(0, x3.v, 8);
     e = add(x0, mul(sub(x1, x0), r));
     o = add(x2, mul(sub(x3, x2), r));
     uint32_t* out = pick<NT>(tb.out, k);
     fe_store<FrParams>(out, tb.n_out, 2 * b, e);
     fe_store<FrParams>(out, tb.n_out, 2 * b + 1, o);
-    mark(1, o.v, 8);
   } else {
     e = fe_load<FrParams>(in, tb.n_in, 2 * b);
     o = fe_load<FrParams>(in, tb.n_in, 2 * b + 1);
-    mark(0, o.v, 8);
   }
 }
 
@@ -98,15 +104,15 @@ __device__ __forceinline__ Fr at_t(const Fr& e, const Fr& o, int t) {
 // One pass of a round over pairs base + (thread >> 2): every lane of the
 // block takes part (the shuffles need full warps). Lane t < 3 of a live pair
 // adds its term at t to acc. s: K6's weights S (8, pairs), null for K7.
-template <int NT, class Mark>
+template <int NT>
 __device__ __forceinline__ void pair_pass(const Tabs<NT>& tb, const uint32_t* __restrict__ s, int64_t pairs,
-                                          int64_t base, bool fold, const Fr& r, Acc& acc, Mark& mark) {
+                                          int64_t base, bool fold, const Fr& r, Acc& acc) {
   const int lane = threadIdx.x & 31, k = lane & 3;
   const int64_t b = base + (threadIdx.x >> 2);
   const bool live = b < pairs;
   Fr e = fe_zero<FrParams>(), o = fe_zero<FrParams>(), sb = fe_zero<FrParams>();
   if (NT == 3 && live) sb = fe_load<FrParams>(s, pairs, b);
-  if (live && k < NT) pair_of<NT>(tb, k, b, fold, r, e, o, mark);
+  if (live && k < NT) pair_of<NT>(tb, k, b, fold, r, e, o);
   Fr E[NT], O[NT];
   const int src = lane & ~3;
 #pragma unroll
@@ -125,34 +131,8 @@ __device__ __forceinline__ void pair_pass(const Tabs<NT>& tb, const uint32_t* __
       term = mul(at_t(E[0], O[0], k), at_t(E[1], O[1], k));
     }
     acc_add(acc, term);
-    mark(2, term.v, 8);
   }
 }
-
-// The stage stamps of the timing entry point: thread 0 of a block writes the
-// cycles since its last stamp to stage k of its row (a store only: a load of
-// the row would put device memory's latency into the stages), after a
-// dependence on `dep` (so a stage ends when its values are there). A stage
-// run more than once (a block's later passes over pairs) keeps its last.
-struct Stamps {
-  long long* row;
-  long long last;
-  uint32_t sink;
-  __device__ __forceinline__ void operator()(int k, const uint32_t* dep = nullptr, int n = 0) {
-    if (threadIdx.x != 0) return;
-    for (int i = 0; i < n; ++i) {
-#ifdef __CUDA_ARCH__
-      asm volatile("xor.b32 %0, %0, %1;" : "+r"(sink) : "r"(dep[i]));
-#else
-      sink ^= dep[i];
-#endif
-    }
-    const long long now = clock64();
-    row[k] = now - last;
-    row[kStamps - 1] = sink;
-    last = now;
-  }
-};
 
 // The round kernels' reduction and hand-over. Each thread's acc holds its
 // lanes' terms (t = lane & 3). A block adds its sums; with more than one
@@ -163,22 +143,19 @@ struct Stamps {
 // carries them into q(0), q(1), q(2) and zeroes them, while its other warps
 // run `side` (the step's coefficients). Returns true, in every thread of the
 // block that runs the transcript step, with the sums in qs (shared memory).
-template <class Side, class Mark>
-__device__ __forceinline__ bool round_sums(Acc acc, unsigned long long* sums, uint32_t* ctr, Acc* qs, Side side,
-                                           Mark& mark) {
+template <class Side>
+__device__ __forceinline__ bool round_sums(Acc acc, unsigned long long* sums, uint32_t* ctr, Acc* qs, Side side) {
   __shared__ Acc red[kThreads / 32][3];
   __shared__ unsigned long long words[27];
   __shared__ int last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   acc = acc_warp_sum(acc, 4);  // lanes 0..3: this warp's sums at t = lane
-  mark(3, acc.v, 9);
   if (lane < 3) red[warp][lane] = acc;
   __syncthreads();
   if (threadIdx.x < 3) {
     Acc s = red[0][threadIdx.x];
     for (int w = 1; w < nwarps; ++w) acc_add(s, red[w][threadIdx.x]);
     qs[threadIdx.x] = s;
-    mark(4, s.v, 9);
   }
   if (gridDim.x > 1) {
     if (warp == 0) {
@@ -188,10 +165,7 @@ __device__ __forceinline__ bool round_sums(Acc acc, unsigned long long* sums, ui
         __threadfence();
       }
       __syncwarp();
-      if (lane == 0) {
-        last = atomicAdd(ctr, 1u) == gridDim.x - 1;
-        mark(5);
-      }
+      if (lane == 0) last = atomicAdd(ctr, 1u) == gridDim.x - 1;
     }
     __syncthreads();
     if (!last) return false;
@@ -214,7 +188,6 @@ __device__ __forceinline__ bool round_sums(Acc acc, unsigned long long* sums, ui
         qs[lane] = q;
       }
       if (lane == 0) *ctr = 0u;
-      mark(6, qs[0].v, 9);
     } else {
       side();
     }
@@ -231,14 +204,13 @@ __device__ __forceinline__ bool round_sums(Acc acc, unsigned long long* sums, ui
 // coefficients coef (6, D, 8), r_i to r_out and r_mont, the chain state, and
 // the next round's pre and coef (tor_next: tor_{i+1}). sums and ctr: zero
 // between launches.
-template <class Mark>
 __device__ __forceinline__ void sc1_round_body(const uint32_t* az, const uint32_t* bz, const uint32_t* cz,
                                                const uint32_t* __restrict__ s, const uint32_t* __restrict__ consts,
                                                const uint32_t* __restrict__ tor_i,
                                                const uint32_t* __restrict__ tor_next, uint32_t* pre, uint32_t* coef,
                                                uint32_t* state, uint32_t* evals, uint32_t* r_out, uint32_t* r_mont,
                                                uint32_t* ctr, uint32_t* az_out, uint32_t* bz_out, uint32_t* cz_out,
-                                               unsigned long long* sums, int64_t pairs, int fold, int D, Mark& mark) {
+                                               unsigned long long* sums, int64_t pairs, int fold, int D) {
   __shared__ uint32_t msg[fs::kMsgWords];
   __shared__ Acc qs[3];
   __shared__ fs::Sc1Coeffs co;
@@ -247,18 +219,17 @@ __device__ __forceinline__ void sc1_round_body(const uint32_t* az, const uint32_
   const int64_t groups = blockDim.x >> 2;
   Acc acc = acc_zero();
   for (int64_t base = (int64_t)blockIdx.x * groups; base < pairs; base += (int64_t)gridDim.x * groups)
-    pair_pass<3>(tb, s, pairs, base, fold, r, acc, mark);
-  if (!round_sums(acc, sums, ctr, qs, [&] { fs::sc1_load_coef(co, coef, D, 32); }, mark)) return;
+    pair_pass<3>(tb, s, pairs, base, fold, r, acc);
+  if (!round_sums(acc, sums, ctr, qs, [&] { fs::sc1_load_coef(co, coef, D, 32); })) return;
   fs::sc1_evals(co, qs, D, evals, msg);
   __syncthreads();
-  mark(7, msg + 10, 8);
   const Fr tor = load8(tor_i);
   if (threadIdx.x == 0) {
     uint32_t st[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) st[i] = state[i];
     Fr rc;
-    fs::sc1_sample(co, tor, msg, D, st, rc, mark);
+    fs::sc1_sample(co, tor, msg, D, st, rc);
     store8(r_out, rc);
 #pragma unroll
     for (int i = 0; i < 8; ++i) state[i] = st[i];
@@ -267,7 +238,6 @@ __device__ __forceinline__ void sc1_round_body(const uint32_t* az, const uint32_
   }
   __syncthreads();
   fs::sc1_next(co, D, coef, r_mont, pre, true);
-  mark(49, co.t2.v, 8);
 }
 
 // K7 with its transcript step: sum_b W_t[b] z_t[b] at t = 0, 1, 2 after the
@@ -278,19 +248,18 @@ __device__ __forceinline__ void prod2_round_body(const uint32_t* w, const uint32
                                                  int64_t pairs, int fold) {
   __shared__ uint32_t msg[10 + 8 * 3];
   __shared__ Acc qs[3];
-  fs::NoMark mark;
   const Fr r = fold ? load8(r_mont) : fe_zero<FrParams>();
   const Tabs<2> tb{{w, z}, {w_out, z_out}, (fold ? 4 : 2) * pairs, 2 * pairs};
   const int64_t groups = blockDim.x >> 2;
   Acc acc = acc_zero();
   for (int64_t base = (int64_t)blockIdx.x * groups; base < pairs; base += (int64_t)gridDim.x * groups)
-    pair_pass<2>(tb, nullptr, pairs, base, fold, r, acc, mark);
-  if (!round_sums(acc, sums, ctr, qs, [] {}, mark) || threadIdx.x >= 32) return;
+    pair_pass<2>(tb, nullptr, pairs, base, fold, r, acc);
+  if (!round_sums(acc, sums, ctr, qs, [] {}) || threadIdx.x >= 32) return;
   uint32_t st[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = state[i];
   Fr rc, rm;
-  fs::sc2_step(qs, st, evals, msg, rc, rm, mark);
+  fs::sc2_step(qs, st, evals, msg, rc, rm);
   if (threadIdx.x == 0) {
     store8(r_out, rc);
     store8(r_mont, rm);
@@ -319,7 +288,6 @@ __device__ __forceinline__ void tail_body(const uint32_t* const (&tabs)[NT], con
   __shared__ fs::Sc1Coeffs co;
   __shared__ Fr r_sh, p_sh;
   __shared__ uint32_t st_sh[8];
-  fs::NoMark mark;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int first = nwarps > 1 ? 32 : 1;  // the threads beside thread 0 while it absorbs
   const int64_t cap = fold ? 2 * pairs0 : pairs0;
@@ -351,7 +319,7 @@ __device__ __forceinline__ void tail_body(const uint32_t* const (&tabs)[NT], con
     for (int m = 0; m < NT; ++m) tb.out[m] = (to1 ? buf1 : buf0) + m * 8 * tb.n_out;
     Acc acc = acc_zero();
     for (int64_t base = 0; base < pairs; base += blockDim.x >> 2)
-      pair_pass<NT>(tb, s_cat + s_off, pairs, base, rf, r, acc, mark);
+      pair_pass<NT>(tb, s_cat + s_off, pairs, base, rf, r, acc);
     acc = acc_warp_sum(acc, 4);
     if (lane < 3) red[warp][lane] = acc;
     __syncthreads();
@@ -365,7 +333,7 @@ __device__ __forceinline__ void tail_body(const uint32_t* const (&tabs)[NT], con
       __syncthreads();
       const bool next = k + 1 < rounds;
       if (threadIdx.x == 0) {
-        fs::sc1_sample(co, load8(tor + 8 * k), msg, D, st, rc, mark);
+        fs::sc1_sample(co, load8(tor + 8 * k), msg, D, st, rc);
       } else {
         fs::sc1_brackets(co, p_sh, load8(tor + 8 * k), load8(tor + 8 * (next ? k + 1 : k)), consts, D, first,
                          next);
@@ -374,7 +342,7 @@ __device__ __forceinline__ void tail_body(const uint32_t* const (&tabs)[NT], con
       fs::sc1_next(co, D, nullptr, reinterpret_cast<uint32_t*>(&r_sh), reinterpret_cast<uint32_t*>(&p_sh), next);
     } else if (warp == 0) {
       Fr rm;
-      fs::sc2_step(qs, st, evals + (int64_t)k * 3 * 8, msg, rc, rm, mark);
+      fs::sc2_step(qs, st, evals + (int64_t)k * 3 * 8, msg, rc, rm);
       if (lane == 0) r_sh = rm;
     }
     if (threadIdx.x == 0) store8(rs + 8 * k, rc);
@@ -398,6 +366,10 @@ __device__ __forceinline__ void tail_body(const uint32_t* const (&tabs)[NT], con
   }
 }
 
+// The words of a round's entering tables of one instance: (8, 4 pairs) when
+// the round folds, else (8, 2 pairs).
+__device__ __forceinline__ int64_t table_words(int64_t pairs, int fold) { return 8 * (fold ? 4 : 2) * pairs; }
+
 }  // namespace sck
 
 __global__ void __launch_bounds__(sck::kThreads)
@@ -405,99 +377,29 @@ sc1_round_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, con
                  const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor_i,
                  const uint32_t* __restrict__ tor_next, uint32_t* pre, uint32_t* coef, uint32_t* state,
                  uint32_t* evals, uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out,
-                 uint32_t* bz_out, uint32_t* cz_out, unsigned long long* sums, int64_t pairs, int fold, int D) {
-  fs::NoMark mark;
-  sck::sc1_round_body(az, bz, cz, s, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, az_out,
-                      bz_out, cz_out, sums, pairs, fold, D, mark);
-}
-
-// The timing entry point: sc1_round_kernel with the stage stamps, a row of
-// sck::kStamps a block (sck::Stamps; the stages are numbered where marked:
-// 0 loads, 1 fold, 2 evaluation products, 3 warp sums, 4 block sum, 5
-// partial sums and ticket, 6 the last block's sums, 7 evaluations of the
-// transcript step, 8.. its compressions, 48 the sampler, 49 the next
-// round's coefficients and pre).
-__global__ void __launch_bounds__(sck::kThreads)
-sc1_round_stamped_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s,
-                         const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor_i,
-                         const uint32_t* __restrict__ tor_next, uint32_t* pre, uint32_t* coef, uint32_t* state,
-                         uint32_t* evals, uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out,
-                         uint32_t* bz_out, uint32_t* cz_out, unsigned long long* sums, long long* stamps,
-                         int64_t pairs, int fold, int D) {
-  sck::Stamps mark{stamps + (int64_t)blockIdx.x * sck::kStamps, (long long)clock64(), 0u};
-  sck::sc1_round_body(az, bz, cz, s, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, az_out,
-                      bz_out, cz_out, sums, pairs, fold, D, mark);
+                 uint32_t* bz_out, uint32_t* cz_out, unsigned long long* sums, int64_t pairs, int fold, int D,
+                 int64_t s_stride, int64_t ist) {
+  const int64_t b = blockIdx.y, in = b * sck::table_words(pairs, fold), out = b * 16 * pairs, st = b * ist;
+  sck::sc1_round_body(az + in, bz + in, cz + in, s + b * s_stride, consts, tor_i + st, tor_next + st, pre + st,
+                      coef + st, state + st, evals + st, r_out + st, r_mont + st, ctr + st, az_out + out,
+                      bz_out + out, cz_out + out, sums + st / 2, pairs, fold, D);
 }
 
 __global__ void __launch_bounds__(sck::kThreads)
 prod2_round_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* r_out,
                    uint32_t* r_mont, uint32_t* ctr, uint32_t* w_out, uint32_t* z_out, unsigned long long* sums,
-                   int64_t pairs, int fold) {
-  sck::prod2_round_body(w, z, state, evals, r_out, r_mont, ctr, w_out, z_out, sums, pairs, fold);
-}
-
-__global__ void __launch_bounds__(sck::kTailThreads)
-sc1_tail_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s_cat,
-                const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor, uint32_t* pre,
-                const uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont,
-                uint32_t* vabc, uint32_t* rabc, int64_t pairs0, int fold, int rounds, int D) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* const tabs[3] = {az, bz, cz};
-  sck::tail_body<3>(tabs, s_cat, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc,
-                    reinterpret_cast<uint32_t*>(smem), pairs0, fold, rounds, D);
-}
-
-__global__ void __launch_bounds__(sck::kTailThreads)
-sc2_tail_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
-                uint32_t* r_mont, int64_t pairs0, int fold, int rounds) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* const tabs[2] = {w, z};
-  sck::tail_body<2>(tabs, nullptr, nullptr, nullptr, nullptr, nullptr, state, evals, rs, r_mont, nullptr, nullptr,
-                    reinterpret_cast<uint32_t*>(smem), pairs0, fold, rounds, 0);
-}
-
-// The batch axis: B instances of one circuit in one launch, each with its own
-// tables, weights, transcript and ticket. A round's grid is (blocks, B) with
-// blockIdx.y the instance, so gridDim.x, which round_sums counts tickets
-// against, is the blocks of one instance; a tail's grid is B blocks, one an
-// instance, each with its own dynamic shared memory. The bodies are the
-// single-instance ones on pointers offset to the instance: a table by its
-// (8, n) size, the weights by s_stride words, and every transcript array
-// (pre, coef, state, evals, r_out or rs, r_mont, tor, vabc, rabc, ctr, sums)
-// by ist words, the size of one instance's copy of the phase's buffer.
-namespace sck {
-__device__ __forceinline__ int64_t table_words(int64_t pairs, int fold) { return 8 * (fold ? 4 : 2) * pairs; }
-}  // namespace sck
-
-__global__ void __launch_bounds__(sck::kThreads)
-sc1_round_b_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s,
-                   const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor_i,
-                   const uint32_t* __restrict__ tor_next, uint32_t* pre, uint32_t* coef, uint32_t* state,
-                   uint32_t* evals, uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out,
-                   uint32_t* bz_out, uint32_t* cz_out, unsigned long long* sums, int64_t pairs, int fold, int D,
-                   int64_t s_stride, int64_t ist) {
-  fs::NoMark mark;
-  const int64_t b = blockIdx.y, in = b * sck::table_words(pairs, fold), out = b * 16 * pairs, st = b * ist;
-  sck::sc1_round_body(az + in, bz + in, cz + in, s + b * s_stride, consts, tor_i + st, tor_next + st, pre + st,
-                      coef + st, state + st, evals + st, r_out + st, r_mont + st, ctr + st, az_out + out,
-                      bz_out + out, cz_out + out, sums + st / 2, pairs, fold, D, mark);
-}
-
-__global__ void __launch_bounds__(sck::kThreads)
-prod2_round_b_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* r_out,
-                     uint32_t* r_mont, uint32_t* ctr, uint32_t* w_out, uint32_t* z_out, unsigned long long* sums,
-                     int64_t pairs, int fold, int64_t ist) {
+                   int64_t pairs, int fold, int64_t ist) {
   const int64_t b = blockIdx.y, in = b * sck::table_words(pairs, fold), out = b * 16 * pairs, st = b * ist;
   sck::prod2_round_body(w + in, z + in, state + st, evals + st, r_out + st, r_mont + st, ctr + st, w_out + out,
                         z_out + out, sums + st / 2, pairs, fold);
 }
 
 __global__ void __launch_bounds__(sck::kTailThreads)
-sc1_tail_b_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s_cat,
-                  const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor, uint32_t* pre,
-                  const uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont,
-                  uint32_t* vabc, uint32_t* rabc, int64_t pairs0, int fold, int rounds, int D, int64_t s_stride,
-                  int64_t ist) {
+sc1_tail_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* __restrict__ s_cat,
+                const uint32_t* __restrict__ consts, const uint32_t* __restrict__ tor, uint32_t* pre,
+                const uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont,
+                uint32_t* vabc, uint32_t* rabc, int64_t pairs0, int fold, int rounds, int D, int64_t s_stride,
+                int64_t ist) {
   extern __shared__ uint4 smem[];
   const int64_t b = blockIdx.x, in = b * sck::table_words(pairs0, fold), st = b * ist;
   const uint32_t* const tabs[3] = {az + in, bz + in, cz + in};
@@ -507,8 +409,8 @@ sc1_tail_b_kernel(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, co
 }
 
 __global__ void __launch_bounds__(sck::kTailThreads)
-sc2_tail_b_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
-                  uint32_t* r_mont, int64_t pairs0, int fold, int rounds, int64_t ist) {
+sc2_tail_kernel(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
+                uint32_t* r_mont, int64_t pairs0, int fold, int rounds, int64_t ist) {
   extern __shared__ uint4 smem[];
   const int64_t b = blockIdx.x, in = b * sck::table_words(pairs0, fold), st = b * ist;
   const uint32_t* const tabs[2] = {w + in, z + in};

@@ -1,19 +1,17 @@
 // K5-K7: the device-resident sumcheck phases' entry points (sumcheck.cuh):
-// a round of each phase with its transcript step, the one-block tails, the
-// timing entry point of K6 with its stage stamps, and the Blake2s yardstick
-// (blake2s.cuh). Each launches on the caller's stream and returns
-// cudaGetLastError().
+// a round of each phase with its transcript step and the one-block tails,
+// each for B instances of one circuit (one instance is B = 1), and the
+// Blake2s yardstick (blake2s.cuh). Each launches on the caller's stream and
+// returns cudaGetLastError().
 //
-// A round launch: `blocks` (at most sck::kMaxBlocks) is the grid; sums (27
-// 64-bit words) and the ticket counter ctr are 0 between launches. With
-// `fold` unset the output tables are not written. A tail: pairs0 (at most sck::kTailPairs) pairs in its
-// first round, `rounds` = log2(pairs0) + 1 rounds down to one pair.
-//
-// The *_b entry points run B instances (sumcheck.cuh, the batch axis): the
-// pointers are instance 0's, the tables (B, 8, n) contiguous, the weights at
-// s_stride words an instance and every transcript array at ist words (even:
-// sums are 64-bit words at the same offset); a round's grid is (blocks, B),
-// blocks an instance, and a tail's B blocks.
+// A round launch: `blocks` (at most sck::kMaxBlocks) is an instance's grid,
+// the launch's (blocks, B); sums (27 64-bit words) and the ticket counter
+// ctr are 0 between launches. With `fold` unset the output tables are not
+// written. A tail: B blocks, pairs0 (at most sck::kTailPairs) pairs in its
+// first round, `rounds` = log2(pairs0) + 1 rounds down to one pair. The
+// pointers are instance 0's, the tables (B, 8, n) contiguous, the weights
+// at s_stride words an instance and every transcript array at ist words
+// (even: sums are 64-bit words at the same offset).
 #include "sumcheck.cuh"
 
 namespace {
@@ -46,107 +44,48 @@ bool batch_ok(int64_t B, int64_t ist) { return B >= 1 && B <= 65535 && ist >= 0 
 }  // namespace
 
 extern "C" int spk_sc1_round(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* s,
-                             const uint32_t* consts, const uint32_t* tor_i, const uint32_t* tor_next, uint32_t* pre,
-                             uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* r_out, uint32_t* r_mont,
-                             uint32_t* ctr, uint32_t* az_out, uint32_t* bz_out, uint32_t* cz_out,
+                             const uint32_t* consts, const uint32_t* tor_i, const uint32_t* tor_next,
+                             uint32_t* pre, uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* r_out,
+                             uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out, uint32_t* bz_out, uint32_t* cz_out,
                              unsigned long long* sums, int64_t pairs, int64_t fold, int64_t blocks, int64_t D,
-                             cudaStream_t stream) {
-  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || D < 3 || D > fs::kMaxEvals)
+                             int64_t B, int64_t s_stride, int64_t ist, cudaStream_t stream) {
+  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || D < 3 || D > fs::kMaxEvals || !batch_ok(B, ist))
     return (int)cudaErrorInvalidValue;
-  sc1_round_kernel<<<(unsigned)blocks, sck::kThreads, 0, stream>>>(az, bz, cz, s, consts, tor_i, tor_next, pre, coef,
-                                                                    state, evals, r_out, r_mont, ctr, az_out, bz_out,
-                                                                    cz_out, sums, pairs, (int)fold, (int)D);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_sc1_round_stamped(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* s,
-                                     const uint32_t* consts, const uint32_t* tor_i, const uint32_t* tor_next,
-                                     uint32_t* pre, uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* r_out,
-                                     uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out, uint32_t* bz_out,
-                                     uint32_t* cz_out, unsigned long long* sums, long long* stamps, int64_t pairs,
-                                     int64_t fold, int64_t blocks, int64_t D, cudaStream_t stream) {
-  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || D < 3 || D > fs::kMaxEvals)
-    return (int)cudaErrorInvalidValue;
-  sc1_round_stamped_kernel<<<(unsigned)blocks, sck::kThreads, 0, stream>>>(
+  sc1_round_kernel<<<dim3((unsigned)blocks, (unsigned)B), sck::kThreads, 0, stream>>>(
       az, bz, cz, s, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, az_out, bz_out, cz_out,
-      sums, stamps, pairs, (int)fold, (int)D);
+      sums, pairs, (int)fold, (int)D, s_stride, ist);
   return (int)cudaGetLastError();
 }
 
 extern "C" int spk_prod2_round(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals,
                                uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* w_out, uint32_t* z_out,
-                               unsigned long long* sums, int64_t pairs, int64_t fold, int64_t blocks, cudaStream_t stream) {
-  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks) return (int)cudaErrorInvalidValue;
-  prod2_round_kernel<<<(unsigned)blocks, sck::kThreads, 0, stream>>>(w, z, state, evals, r_out, r_mont, ctr, w_out,
-                                                                      z_out, sums, pairs, (int)fold);
+                               unsigned long long* sums, int64_t pairs, int64_t fold, int64_t blocks, int64_t B,
+                               int64_t ist, cudaStream_t stream) {
+  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || !batch_ok(B, ist)) return (int)cudaErrorInvalidValue;
+  prod2_round_kernel<<<dim3((unsigned)blocks, (unsigned)B), sck::kThreads, 0, stream>>>(
+      w, z, state, evals, r_out, r_mont, ctr, w_out, z_out, sums, pairs, (int)fold, ist);
   return (int)cudaGetLastError();
 }
 
 extern "C" int spk_sc1_tail(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* s_cat,
                             const uint32_t* consts, const uint32_t* tor, uint32_t* pre, const uint32_t* coef,
                             uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont, uint32_t* vabc,
-                            uint32_t* rabc, int64_t pairs0, int64_t fold, int64_t rounds, int64_t D,
-                            cudaStream_t stream) {
-  if (!tail_ok(pairs0, rounds) || D < 3 || D > fs::kMaxEvals) return (int)cudaErrorInvalidValue;
-  if (const int e = tail_opt_in(sc1_tail_kernel, 3)) return e;
-  sc1_tail_kernel<<<1, tail_threads(pairs0), tail_smem(3, pairs0, fold), stream>>>(
-      az, bz, cz, s_cat, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc, pairs0, (int)fold,
-      (int)rounds, (int)D);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_sc2_tail(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
-                            uint32_t* r_mont, int64_t pairs0, int64_t fold, int64_t rounds, cudaStream_t stream) {
-  if (!tail_ok(pairs0, rounds)) return (int)cudaErrorInvalidValue;
-  if (const int e = tail_opt_in(sc2_tail_kernel, 2)) return e;
-  sc2_tail_kernel<<<1, tail_threads(pairs0), tail_smem(2, pairs0, fold), stream>>>(w, z, state, evals, rs, r_mont,
-                                                                                   pairs0, (int)fold, (int)rounds);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_sc1_round_b(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* s,
-                               const uint32_t* consts, const uint32_t* tor_i, const uint32_t* tor_next,
-                               uint32_t* pre, uint32_t* coef, uint32_t* state, uint32_t* evals, uint32_t* r_out,
-                               uint32_t* r_mont, uint32_t* ctr, uint32_t* az_out, uint32_t* bz_out, uint32_t* cz_out,
-                               unsigned long long* sums, int64_t pairs, int64_t fold, int64_t blocks, int64_t D,
-                               int64_t B, int64_t s_stride, int64_t ist, cudaStream_t stream) {
-  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || D < 3 || D > fs::kMaxEvals || !batch_ok(B, ist))
-    return (int)cudaErrorInvalidValue;
-  sc1_round_b_kernel<<<dim3((unsigned)blocks, (unsigned)B), sck::kThreads, 0, stream>>>(
-      az, bz, cz, s, consts, tor_i, tor_next, pre, coef, state, evals, r_out, r_mont, ctr, az_out, bz_out, cz_out,
-      sums, pairs, (int)fold, (int)D, s_stride, ist);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_prod2_round_b(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals,
-                                 uint32_t* r_out, uint32_t* r_mont, uint32_t* ctr, uint32_t* w_out, uint32_t* z_out,
-                                 unsigned long long* sums, int64_t pairs, int64_t fold, int64_t blocks, int64_t B,
-                                 int64_t ist, cudaStream_t stream) {
-  if (pairs < 1 || blocks < 1 || blocks > sck::kMaxBlocks || !batch_ok(B, ist)) return (int)cudaErrorInvalidValue;
-  prod2_round_b_kernel<<<dim3((unsigned)blocks, (unsigned)B), sck::kThreads, 0, stream>>>(
-      w, z, state, evals, r_out, r_mont, ctr, w_out, z_out, sums, pairs, (int)fold, ist);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_sc1_tail_b(const uint32_t* az, const uint32_t* bz, const uint32_t* cz, const uint32_t* s_cat,
-                              const uint32_t* consts, const uint32_t* tor, uint32_t* pre, const uint32_t* coef,
-                              uint32_t* state, uint32_t* evals, uint32_t* rs, uint32_t* r_mont, uint32_t* vabc,
-                              uint32_t* rabc, int64_t pairs0, int64_t fold, int64_t rounds, int64_t D, int64_t B,
-                              int64_t s_stride, int64_t ist, cudaStream_t stream) {
+                            uint32_t* rabc, int64_t pairs0, int64_t fold, int64_t rounds, int64_t D, int64_t B,
+                            int64_t s_stride, int64_t ist, cudaStream_t stream) {
   if (!tail_ok(pairs0, rounds) || D < 3 || D > fs::kMaxEvals || !batch_ok(B, ist)) return (int)cudaErrorInvalidValue;
-  if (const int e = tail_opt_in(sc1_tail_b_kernel, 3)) return e;
-  sc1_tail_b_kernel<<<(unsigned)B, tail_threads(pairs0), tail_smem(3, pairs0, fold), stream>>>(
+  if (const int e = tail_opt_in(sc1_tail_kernel, 3)) return e;
+  sc1_tail_kernel<<<(unsigned)B, tail_threads(pairs0), tail_smem(3, pairs0, fold), stream>>>(
       az, bz, cz, s_cat, consts, tor, pre, coef, state, evals, rs, r_mont, vabc, rabc, pairs0, (int)fold,
       (int)rounds, (int)D, s_stride, ist);
   return (int)cudaGetLastError();
 }
 
-extern "C" int spk_sc2_tail_b(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
-                              uint32_t* r_mont, int64_t pairs0, int64_t fold, int64_t rounds, int64_t B, int64_t ist,
-                              cudaStream_t stream) {
+extern "C" int spk_sc2_tail(const uint32_t* w, const uint32_t* z, uint32_t* state, uint32_t* evals, uint32_t* rs,
+                            uint32_t* r_mont, int64_t pairs0, int64_t fold, int64_t rounds, int64_t B, int64_t ist,
+                            cudaStream_t stream) {
   if (!tail_ok(pairs0, rounds) || !batch_ok(B, ist)) return (int)cudaErrorInvalidValue;
-  if (const int e = tail_opt_in(sc2_tail_b_kernel, 2)) return e;
-  sc2_tail_b_kernel<<<(unsigned)B, tail_threads(pairs0), tail_smem(2, pairs0, fold), stream>>>(
+  if (const int e = tail_opt_in(sc2_tail_kernel, 2)) return e;
+  sc2_tail_kernel<<<(unsigned)B, tail_threads(pairs0), tail_smem(2, pairs0, fold), stream>>>(
       w, z, state, evals, rs, r_mont, pairs0, (int)fold, (int)rounds, ist);
   return (int)cudaGetLastError();
 }

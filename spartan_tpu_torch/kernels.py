@@ -25,11 +25,10 @@ products before the carry flag); they count no launches.
 which replace JAX functions that are not Pallas kernels: the round kernels
 K6 and K7, each round with its transcript step (K5) in the same launch, and
 the one-block tails that run a phase's last rounds (``csrc/sumcheck_ops.cu``),
-each also with a batch axis (``*_b``: B instances of one circuit a launch,
-for ``protocol/batched.py``); and two that only ``chip_smoke.py`` calls:
-K6 with cycle stamps at its stages (``sc1_round_stamped``) and K5's
-Blake2s as a batch (``blake2s_batch``). Their arguments are tensors of any shape and ints;
-``call`` launches them and counts like ``launch``.
+each on a batch axis (B instances of one circuit a launch; the single prove
+is B = 1); and one that only ``chip_smoke.py`` calls, K5's Blake2s as a
+batch (``blake2s_batch``). Their arguments are tensors of any shape and
+ints; ``call`` launches them and counts like ``launch``.
 
 ``FUSED_KERNELS`` are K1 and K2 where the prover runs them on whole
 functions that the JAX package computes as one function, not as Pallas
@@ -100,19 +99,15 @@ YARDSTICKS = {
     "fp_inv_thread": (1, 0),
 }
 
-# entry point -> (source file, JAX function replaced, tensor arguments, int arguments)
+# entry point -> (source file, JAX function replaced, tensor arguments, int arguments); the phase kernels' last
+# ints are B, then (sc1's) the weights' and the transcript's instance strides, and each also replaces its batched
+# counterpart in spartan_tpu/protocol/batched.py (:269 with :248, :371 with :377, :290, :388)
 PHASE_KERNELS = {
-    "sc1_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 18, 4),
-    "prod2_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:97", 10, 3),
-    "sc1_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:166", 14, 4),
-    "sc2_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:205", 6, 3),
-    "sc1_round_stamped": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 19, 4),
+    "sc1_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:77", 18, 7),
+    "prod2_round": ("sumcheck_ops.cu", "spartan_tpu/ops/sumcheck.py:97", 10, 5),
+    "sc1_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:166", 14, 7),
+    "sc2_tail": ("sumcheck_ops.cu", "spartan_tpu/protocol/fused.py:205", 6, 5),
     "blake2s_batch": ("sumcheck_ops.cu", "spartan_tpu/ops/blake2s.py:120", 2, 2),
-    # the batch axis: B instances a launch (ints: ..., B, then the weights' and the transcript's instance strides)
-    "sc1_round_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:269", 18, 7),  # + _sc1_emit_core_b :248
-    "prod2_round_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:371", 10, 5),  # + _sc2_emit_core_b :377
-    "sc1_tail_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:290", 14, 7),
-    "sc2_tail_b": ("sumcheck_ops.cu", "spartan_tpu/protocol/batched.py:388", 6, 5),
 }
 
 # entry point -> (source file, JAX function replaced, tensor arguments, int arguments)

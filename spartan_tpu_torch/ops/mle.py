@@ -5,7 +5,9 @@ Counterpart of ``spartan_tpu/ops/mle.py``: an nv-variable MLE is its
 0 the least significant bit; folds fix variable 0 first. The folds'
 products, sums and differences go through the Fr kernel K1
 (``field.mont_mul``/``add``/``sub``); the eq tables are one launch of K1's
-``eq_tables``.
+``eq_tables`` a point. The eq tables take B points at once, (B, 8, nv), and
+give (B, 8, 2^nv) tables (``spartan_tpu/protocol/batched.py:68``, :87); one
+point is B = 1.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ from spartan_tpu_torch.ops.field import FR
 __all__ = [
     "fold", "eval_at", "eval_binary", "eq_table", "eq_suffix_tables", "eq_suffix_tables_mont",
     "eq_table_plain", "eq_suffix_tables_plain", "sum_mod", "scale",
-    "fold_b", "eq_table_b", "eq_suffix_tables_b",
 ]
 
 sum_mod = f.sum_mod
@@ -95,70 +96,11 @@ def _eq_sizes(nv: int, tables: int) -> list:
 
 
 def _eq_tables(ts: torch.Tensor, tables: int) -> list:
-    """Eq tables 0 .. tables - 1 of the suffix set in one launch of K1's
-    ``eq_tables`` (``csrc/fr_tables.cuh``): one buffer, each table a
-    contiguous (8, 2^(nv-j)) view of it."""
-    nv = ts.shape[1]
-    buf = torch.empty(FR.nlimb * sum(_eq_sizes(nv, tables)), dtype=torch.int32, device=ts.device)
-    kernels.call("eq_tables", [ts.contiguous(), buf], [nv, tables], (nv, tables))
-    return [v[0] for v in _eq_views(buf[None], nv, tables)]
-
-
-def _eq_views(buf: torch.Tensor, nv: int, tables: int) -> list:
-    """Table j of every row of buf (B, 8 total), the tables one after the
-    other in each row: (B, 8, 2^(nv-j)) views."""
-    out, off = [], 0
-    for m in _eq_sizes(nv, tables):
-        out.append(buf[:, FR.nlimb * off : FR.nlimb * (off + m)].view(buf.shape[0], FR.nlimb, m))
-        off += m
-    return out
-
-
-def eq_table(ts: torch.Tensor) -> torch.Tensor:
-    """eq(t, x) over the whole cube: ts (8, nv) Montgomery -> (8, 2^nv),
-    variable i bit i of the index (``spartan_tpu/ops/mle.py:89``). One
-    launch on the card; a CPU point takes ``eq_table_plain``."""
-    if ts.device.type == "cpu":
-        return eq_table_plain(ts)
-    return _eq_tables(ts, 1)[0]
-
-
-def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
-    """All suffix eq tables S[j] = eq table of ts[j:], j = 0..nv, for a
-    (8, nv) Montgomery point (``spartan_tpu/ops/mle.py:123``): S[j][v] has
-    bit k of v for variable j + k, and S[nv] is the constant 1. One launch
-    on the card; a CPU point takes ``eq_suffix_tables_plain``."""
-    if ts.device.type == "cpu":
-        return eq_suffix_tables_plain(ts)
-    return _eq_tables(ts, ts.shape[1] + 1)
-
-
-def eq_suffix_tables(ts_ints, device="cpu") -> list:
-    """``eq_suffix_tables_mont`` for a point given as host ints."""
-    return eq_suffix_tables_mont(f.encode_mont(FR, ts_ints, device))
-
-
-# ---------------------------------------------------------------------------
-# The batch axis: B instances, each table (8, N) of a (B, 8, N) tensor
-# ---------------------------------------------------------------------------
-
-
-def fold_b(table: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``fold`` of each instance by its own r: table (B, 8, N), r (B, 8)
-    Montgomery -> (B, 8, N / 2) (``spartan_tpu/protocol/batched.py:59``),
-    one launch of each Fr kernel for the batch."""
-    t = table.transpose(0, 1)  # (8, B, N): limbs first, as the field wrappers take them
-    even, odd = t[..., 0::2], t[..., 1::2]
-    diff = f.sub(FR, odd, even)
-    return f.add(FR, even, f.mont_mul(FR, diff, r.t()[:, :, None])).transpose(0, 1).contiguous()
-
-
-def _eq_tables_b(ts: torch.Tensor, tables: int) -> list:
-    """Eq tables 0 .. tables - 1 of each instance's point, ts (B, 8, nv)
-    Montgomery: one buffer (B, 8 total), a row an instance, the tables one
-    after the other in it. On the card one ``eq_tables`` launch an instance
-    writes its row; a CPU point takes the plain versions. Returns table j
-    as a (B, 8, 2^(nv-j)) view."""
+    """Eq tables 0 .. tables - 1 of the suffix set of each point, ts (B, 8,
+    nv) Montgomery: one buffer (B, 8 total), a row a point, the tables one
+    after the other in it. On the card one launch of K1's ``eq_tables``
+    (``csrc/fr_tables.cuh``) a point writes its row; a CPU point takes the
+    plain versions. Returns table j as a (B, 8, 2^(nv-j)) view."""
     bsz, _k, nv = ts.shape
     buf = torch.empty((bsz, FR.nlimb * sum(_eq_sizes(nv, tables))), dtype=torch.int32, device=ts.device)
     views = _eq_views(buf, nv, tables)
@@ -172,15 +114,35 @@ def _eq_tables_b(ts: torch.Tensor, tables: int) -> list:
     return views
 
 
-def eq_table_b(ts: torch.Tensor) -> torch.Tensor:
-    """``eq_table`` of each instance's point: ts (B, 8, nv) Montgomery ->
-    (B, 8, 2^nv) (``spartan_tpu/protocol/batched.py:87``)."""
-    return _eq_tables_b(ts, 1)[0]
+def _eq_views(buf: torch.Tensor, nv: int, tables: int) -> list:
+    """Table j of every row of buf (B, 8 total), the tables one after the
+    other in each row: (B, 8, 2^(nv-j)) views."""
+    out, off = [], 0
+    for m in _eq_sizes(nv, tables):
+        out.append(buf[:, FR.nlimb * off : FR.nlimb * (off + m)].view(buf.shape[0], FR.nlimb, m))
+        off += m
+    return out
 
 
-def eq_suffix_tables_b(ts: torch.Tensor) -> list:
-    """``eq_suffix_tables_mont`` of each instance's point: ts (B, 8, nv)
-    Montgomery -> S[j] (B, 8, 2^(nv-j)), j = 0..nv
-    (``spartan_tpu/protocol/batched.py:68``), views of one buffer whose row
-    b holds instance b's tables one after the other."""
-    return _eq_tables_b(ts, ts.shape[2] + 1)
+def eq_table(ts: torch.Tensor) -> torch.Tensor:
+    """eq(t, x) over the whole cube for each point: ts (B, 8, nv)
+    Montgomery -> (B, 8, 2^nv), variable i bit i of the index
+    (``spartan_tpu/ops/mle.py:89``). One launch a point on the card; a CPU
+    point takes ``eq_table_plain``."""
+    return _eq_tables(ts, 1)[0]
+
+
+def eq_suffix_tables_mont(ts: torch.Tensor) -> list:
+    """All suffix eq tables S[j] = eq table of ts[j:], j = 0..nv, of each
+    point, ts (B, 8, nv) Montgomery (``spartan_tpu/ops/mle.py:123``): S[j]
+    (B, 8, 2^(nv-j)), S[j][b][v] has bit k of v for variable j + k, and
+    S[nv] is the constant 1; views of one buffer whose row b holds point
+    b's tables one after the other. One launch a point on the card; a CPU
+    point takes ``eq_suffix_tables_plain``."""
+    return _eq_tables(ts, ts.shape[2] + 1)
+
+
+def eq_suffix_tables(ts_ints, device="cpu") -> list:
+    """``eq_suffix_tables_mont`` of one point given as host ints: S[j]
+    (8, 2^(nv-j))."""
+    return [t[0] for t in eq_suffix_tables_mont(f.encode_mont(FR, ts_ints, device)[None])]

@@ -106,8 +106,9 @@ class MLArgumentForR1CS:
 
         device_fs = mesh is None and _use_device_fs()
         if device_fs:
-            with span("Prove Sumcheck 1 (fused)"):
-                res1 = fused.sc1_phase(ps.az, ps.bz, ps.cz, ps.suffix, ps.tor, fs.get_state())
+            with span("Prove Sumcheck 1 (fused)"):  # the phases' batch axis at B = 1
+                res1 = fused.sc1_phase(ps.az[None], ps.bz[None], ps.cz[None], [t[None] for t in ps.suffix], [ps.tor],
+                                       [fs.get_state()])[0]
             sc1_msgs = [sc.ProverMsg(evaluations=e) for e in res1.evals]
             fs.set_state(res1.state)
             pm4 = pr.ProverFourthMessage(*res1.vabc)
@@ -139,7 +140,7 @@ class MLArgumentForR1CS:
 
         if device_fs:
             with span("Prove Sumcheck 2 (fused)"):
-                res2 = fused.sc2_phase(ps.w_cur, ps.z_cur, fs.get_state())
+                res2 = fused.sc2_phase(ps.w_cur[None], ps.z_cur[None], [fs.get_state()])[0]
             sc2_msgs = [sc.ProverMsg(evaluations=e) for e in res2.evals]
             fs.set_state(res2.state)
             ps.randomness = res2.rs[:-1]

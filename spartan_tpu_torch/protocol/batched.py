@@ -17,10 +17,9 @@ package dispatches once for it:
   the batch (``ops/sparse.py``), the eq tables one ``eq_tables`` launch an
   instance (``ops/mle.py``);
 - each sumcheck phase, round 4 included, is one launch a round and one
-  tail for the whole batch, on the batch-axis kernels ``sc1_round_b``,
-  ``prod2_round_b``, ``sc1_tail_b`` and ``sc2_tail_b``
-  (``protocol/fused.py``): the same 18 launches a 2^16 prove as one
-  instance takes, whatever B is.
+  tail for the whole batch (``protocol/fused.py``'s ``sc1_round``,
+  ``prod2_round``, ``sc1_tail`` and ``sc2_tail``): the same 18 launches a
+  2^16 prove as one instance takes, whatever B is.
 
 Each instance keeps its own transcript (it absorbs its own public input),
 so each proof is byte-identical to what ``MLArgumentForR1CS.prove`` gives
@@ -202,23 +201,23 @@ def prove_many(pk: IndexPK, instances: Sequence[Tuple[List[int], List[int]]], pp
 
     mats = (pk.matrix_a, pk.matrix_b, pk.matrix_c)
     with span("Batch Prove 3: sparse mat-vec"):
-        az, bz, cz = (sparse.sum_over_y_b(m.coo, z, n) for m in mats)
+        az, bz, cz = (sparse.sum_over_y(m.coo, z, n) for m in mats)
     pm3 = pr.ProverThirdMessage(ml_index_info=sc.IndexInfo(max_multiplicands=log_n + 2, num_variables=log_n))
     for fs in fss:
         fs.feed(pm3.serialize())
 
     with span("Batch Prove SC1 (fused)"):
-        suffix = mle.eq_suffix_tables_b(_points_mont(tors, dev))
-        res1 = fused.sc1_phase_b(az, bz, cz, suffix, tors, [fs.get_state() for fs in fss])
+        suffix = mle.eq_suffix_tables_mont(_points_mont(tors, dev))
+        res1 = fused.sc1_phase(az, bz, cz, suffix, tors, [fs.get_state() for fs in fss])
     for fs, r in zip(fss, res1):
         fs.set_state(r.state)
 
     with span("Batch Prove 5: eval_on_x + combine"):
-        eqx = mle.eq_table_b(_points_mont([r.rs for r in res1], dev))
+        eqx = mle.eq_table(_points_mont([r.rs for r in res1], dev))
         rabc = _points_mont([r.rabc for r in res1], dev).transpose(0, 1)  # (8, B, 3)
         w = None
         for j, m in enumerate(mats):
-            term = fo.mont_mul(FR, sparse.eval_on_x_table_b(m.coo, eqx, n).transpose(0, 1), rabc[:, :, j : j + 1])
+            term = fo.mont_mul(FR, sparse.eval_on_x_table(m.coo, eqx, n).transpose(0, 1), rabc[:, :, j : j + 1])
             w = term if w is None else fo.add(FR, w, term)
         w = w.transpose(0, 1).contiguous()  # (B, 8, n)
     pm5 = pr.ProverFifthMessage(index_info=sc.IndexInfo(max_multiplicands=2, num_variables=log_n))
@@ -226,7 +225,7 @@ def prove_many(pk: IndexPK, instances: Sequence[Tuple[List[int], List[int]]], pp
         fs.feed(pm5.serialize())
 
     with span("Batch Prove SC2 (fused)"):
-        res2 = fused.sc2_phase_b(w, z, [fs.get_state() for fs in fss])
+        res2 = fused.sc2_phase_b(w, z, [fs.get_state() for fs in fss])  # sc2_phase, by the name tests patch
     for fs, r in zip(fss, res2):
         fs.set_state(r.state)
 

@@ -215,9 +215,8 @@ def prover_third_round(state: ProverThirdState, tor: List[int], route: Route = O
     pk = state.pk
     n = state.z.shape[1]
     with span("Prove 3: sparse mat-vec + eq"):
-        az = sparse.sum_over_y(pk.matrix_a.coo, state.z, n)
-        bz = sparse.sum_over_y(pk.matrix_b.coo, state.z, n)
-        cz = sparse.sum_over_y(pk.matrix_c.coo, state.z, n)
+        z = state.z[None]  # the sparse products' batch axis, B = 1
+        az, bz, cz = (sparse.sum_over_y(m.coo, z, n)[0] for m in (pk.matrix_a, pk.matrix_b, pk.matrix_c))
         suffix = mle.eq_suffix_tables(tor, state.z.device)
     info = sc.IndexInfo(max_multiplicands=pk.log_n + 2, num_variables=pk.log_n)
     next_state = ProverFirstSumcheckState(
@@ -287,11 +286,11 @@ def prove_fifth_round(state: ProverFifthState, r_a: int, r_b: int, r_c: int, rou
     dev = state.z.device
     n = state.z.shape[1]
     with span("Prove 5: eval_on_x + combine"):
-        eqx = mle.eq_table(fo.encode_mont(FR, state.r_x, dev))
+        eqx = mle.eq_table(fo.encode_mont(FR, state.r_x, dev)[None])  # (1, 8, n): B = 1
         rabc = fo.encode_mont(FR, [r_a, r_b, r_c], dev)
         w = None
         for j, m in enumerate((pk.matrix_a, pk.matrix_b, pk.matrix_c)):
-            term = mle.scale(sparse.eval_on_x_table(m.coo, eqx, n), rabc[:, j])
+            term = mle.scale(sparse.eval_on_x_table(m.coo, eqx, n)[0], rabc[:, j])
             w = term if w is None else fo.add(FR, w, term)
     info = sc.IndexInfo(max_multiplicands=2, num_variables=pk.log_n)
     return (

@@ -353,9 +353,9 @@ def matrix_evals_device(vk: IndexVK, r_x: List[int], r_y: List[int]):
     (``eq_tables``), each matrix's sparse partial evaluation at r_x, then
     its fold ladder at r_y (K1). Returns three canonical Fr ints."""
     dev = vk.matrix_a.coo[2].device
-    eqx = mle.eq_table(fo.encode_mont(FR, r_x, dev))
+    eqx = mle.eq_table(fo.encode_mont(FR, r_x, dev)[None])  # (1, 8, n): B = 1
     ry = fo.encode_mont(FR, r_y, dev)
-    outs = [mle.eval_at(sparse.eval_on_x_table(m.coo, eqx, 1 << len(r_x)), ry)
+    outs = [mle.eval_at(sparse.eval_on_x_table(m.coo, eqx, 1 << len(r_x))[0], ry)
             for m in (vk.matrix_a, vk.matrix_b, vk.matrix_c)]
     return tuple(fo.decode_mont(FR, torch.cat(outs, dim=1)))
 

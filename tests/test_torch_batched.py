@@ -229,8 +229,8 @@ def _rand_tables(rng, bsz: int, n: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("chunk", ["one pass", "an instance a pass"])
 def test_batched_sparse_products_match_single(chunk, monkeypatch):
-    """sum_over_y_b and eval_on_x_table_b on B = 3 instances equal the
-    single products on each, in one pass and in passes of one instance."""
+    """sum_over_y and eval_on_x_table on B = 3 instances equal the B = 1
+    products of each, in one pass and in passes of one instance."""
     rng = random.Random(17)
     cs, _v, _w = generate_circuit_with_random_input(num_public=4, num_private=28, pad_to_square=True,
                                                     density=1, rng=random.Random(3))
@@ -239,36 +239,32 @@ def test_batched_sparse_products_match_single(chunk, monkeypatch):
     if chunk != "one pass":
         monkeypatch.setattr(sparse, "SEGSUM_B_LANES", coo[0].shape[0])
     tabs = _rand_tables(rng, 3, 32)
-    got_y, got_x = sparse.sum_over_y_b(coo, tabs, 32), sparse.eval_on_x_table_b(coo, tabs, 32)
+    got_y, got_x = sparse.sum_over_y(coo, tabs, 32), sparse.eval_on_x_table(coo, tabs, 32)
     for b in range(3):
-        assert torch.equal(got_y[b], sparse.sum_over_y(coo, tabs[b], 32))
-        assert torch.equal(got_x[b], sparse.eval_on_x_table(coo, tabs[b], 32))
+        assert torch.equal(got_y[b], sparse.sum_over_y(coo, tabs[b : b + 1], 32)[0])
+        assert torch.equal(got_x[b], sparse.eval_on_x_table(coo, tabs[b : b + 1], 32)[0])
 
 
 def test_batched_eq_tables_and_fold_match_single():
-    """eq_suffix_tables_b, eq_table_b and fold_b on B = 3 instances equal
-    the single-instance functions on each."""
+    """eq_suffix_tables_mont and eq_table on B = 3 points equal their B = 1
+    tables of each point, and eq_suffix_tables of its ints."""
     rng = random.Random(23)
     nv, bsz = 4, 3
     pts = [[rng.randrange(hf.R) for _ in range(nv)] for _ in range(bsz)]
     ts = torch.stack([fo.encode_mont(FR, p) for p in pts])
-    suffix, eq = mle.eq_suffix_tables_b(ts), mle.eq_table_b(ts)
+    suffix, eq = mle.eq_suffix_tables_mont(ts), mle.eq_table(ts)
     assert [tuple(s.shape) for s in suffix] == [(bsz, 8, 1 << (nv - j)) for j in range(nv + 1)]
-    tabs = _rand_tables(rng, bsz, 16)
-    r = torch.stack([fo.encode_mont(FR, [rng.randrange(hf.R)]).reshape(8) for _ in range(bsz)])
-    folded = mle.fold_b(tabs, r)
     for b in range(bsz):
         single = mle.eq_suffix_tables(pts[b])
         assert all(torch.equal(suffix[j][b], single[j]) for j in range(nv + 1))
-        assert torch.equal(eq[b], mle.eq_table(ts[b]))
-        assert torch.equal(folded[b], mle.fold(tabs[b], r[b]))
+        assert torch.equal(eq[b], mle.eq_table(ts[b : b + 1])[0])
 
 
 def test_batched_phases_match_single_and_jax():
-    """sc1_phase_b and sc2_phase_b at log_n = 9 (a round launch, then the
-    tail) on B = 3 instances equal sc1_phase and sc2_phase on each; instance
-    1 is the phases fixture's log_n = 9 entry, so it also equals the JAX
-    package's fused phases."""
+    """sc1_phase and sc2_phase at log_n = 9 (a round launch, then the tail)
+    on B = 3 instances equal their B = 1 runs of each; instance 1 is the
+    phases fixture's log_n = 9 entry, so it also equals the JAX package's
+    fused phases."""
     log_n, bsz = 9, 3
     want = json.loads((FIXTURES / "sumcheck_phases_jax.json").read_text())[str(log_n)]
     fix = random.Random(1000 + log_n)  # as scripts/make_sumcheck_fixture.py draws them
@@ -285,12 +281,13 @@ def test_batched_phases_match_single_and_jax():
     states = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(bsz)]
     states[1] = fix_state
     ts = torch.stack([fo.encode_mont(FR, t) for t in tors])
-    r1 = fused.sc1_phase_b(*tabs[:3], mle.eq_suffix_tables_b(ts), tors, states)
-    r2 = fused.sc2_phase_b(tabs[3], tabs[4], states)
+    r1 = fused.sc1_phase(*tabs[:3], mle.eq_suffix_tables_mont(ts), tors, states)
+    r2 = fused.sc2_phase(tabs[3], tabs[4], states)
     for b in range(bsz):
-        assert r1[b] == fused.sc1_phase(tabs[0][b], tabs[1][b], tabs[2][b], mle.eq_suffix_tables(tors[b]), tors[b],
-                                        states[b])
-        assert r2[b] == fused.sc2_phase(tabs[3][b], tabs[4][b], states[b])
+        one = slice(b, b + 1)
+        assert [r1[b]] == fused.sc1_phase(*(t[one] for t in tabs[:3]), [t[None] for t in mle.eq_suffix_tables(tors[b])],
+                                          [tors[b]], [states[b]])
+        assert [r2[b]] == fused.sc2_phase(tabs[3][one], tabs[4][one], [states[b]])
     ints = lambda xs: [_h(x) for x in xs]  # noqa: E731
     assert r1[1].evals == [ints(e) for e in want["sc1"]["evals"]] and r1[1].rs == ints(want["sc1"]["rs"])
     assert (r1[1].vabc, r1[1].rabc, r1[1].state.hex()) == (ints(want["sc1"]["vabc"]), ints(want["sc1"]["rabc"]),

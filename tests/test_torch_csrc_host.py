@@ -7,12 +7,12 @@ of fr_mul (and its Fp instantiation, the point kernels' product), both
 versions of the Fp Fermat inversion, and the sumcheck-phase kernels: the
 Blake2s of the transcript step against ``hashlib``, its sampler against the
 host stream, the unreduced sums and their reduction against Python integers,
-the round kernels K6 and K7 with their transcript step (over one to three
-blocks, so the partials and the last block's ticket run) and the one-block
-tails against their plain versions, and the same kernels on a batch axis
-(2-D grids of 1 to 3 blocks by 2 to 3 instances, the shim interleaving the
-instances' blocks; tails a block an instance). This holds the kernels'
-own arithmetic, tables and edge rules on the CPU. Every ``.cu`` file,
+the round kernels K6 and K7 with their transcript step and the one-block
+tails against their plain versions, on their batch axis: 2-D grids of 1 to
+3 blocks (so the partials and the last block's ticket run) by 1 to 3
+instances, the shim interleaving the instances' blocks; tails a block an
+instance, at 1 and 2 instances. This holds the kernels' own arithmetic,
+tables and edge rules on the CPU. Every ``.cu`` file,
 entry points and launches included, also goes through ``g++
 -fsyntax-only`` with the CUDA runtime stubbed, which finds a C++ error
 before a build on the card; whether nvcc accepts them, and how fast they
@@ -97,77 +97,42 @@ extern "C" uint32_t host_sample_fr(const uint32_t* state, uint32_t counter, uint
   return b2s::sample_fr<FrParams>(state, counter, out);
 }
 
-// A round launch with its transcript step (K6 or K7 with K5): t the entry
-// point's pointer arguments in order, blocks the grid (round_blocks).
-extern "C" int host_round(int sc1, void* const* t, int64_t pairs, int fold, int blocks, int D) {
+// A round launch with its transcript step (K6 or K7 with K5) over a
+// (blocks, B) grid, and a one-block tail a block an instance, at the entry
+// point's block size: t the entry point's pointer arguments in order,
+// instance 0's; blocks an instance's grid (round_blocks).
+extern "C" int host_round(int sc1, void* const* t, int64_t pairs, int fold, int blocks, int D, int B,
+                          int64_t s_stride, int64_t ist) {
   using U = uint32_t*;
   using W = unsigned long long*;
   using C = const uint32_t*;
   if (sc1)
-    shim_launch(blocks, sck::kThreads, [&] {
+    shim_launch2(blocks, B, sck::kThreads, [&] {
       sc1_round_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), C(t[6]), U(t[7]), U(t[8]), U(t[9]),
-                       U(t[10]), U(t[11]), U(t[12]), U(t[13]), U(t[14]), U(t[15]), U(t[16]), W(t[17]), pairs, fold,
-                       D);
+                       U(t[10]), U(t[11]), U(t[12]), U(t[13]), U(t[14]), U(t[15]), U(t[16]), W(t[17]), pairs, fold, D,
+                       s_stride, ist);
     });
   else
-    shim_launch(blocks, sck::kThreads, [&] {
+    shim_launch2(blocks, B, sck::kThreads, [&] {
       prod2_round_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), U(t[6]), U(t[7]), U(t[8]),
-                         W(t[9]), pairs, fold);
+                         W(t[9]), pairs, fold, ist);
     });
   return 0;
 }
 
-// A one-block tail, at the entry point's block size.
-extern "C" int host_tail(int sc1, void* const* t, int64_t pairs0, int fold, int rounds, int D) {
+extern "C" int host_tail(int sc1, void* const* t, int64_t pairs0, int fold, int rounds, int D, int B,
+                         int64_t s_stride, int64_t ist) {
   using U = uint32_t*;
   using C = const uint32_t*;
   const unsigned threads = (unsigned)std::min<int64_t>(sck::kTailThreads, std::max<int64_t>(32, 4 * pairs0));
   if (sc1)
-    shim_launch(1, threads, [&] {
+    shim_launch(B, threads, [&] {
       sc1_tail_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), U(t[6]), C(t[7]), U(t[8]), U(t[9]),
-                      U(t[10]), U(t[11]), U(t[12]), U(t[13]), pairs0, fold, rounds, D);
-    });
-  else
-    shim_launch(1, threads, [&] {
-      sc2_tail_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), pairs0, fold, rounds);
-    });
-  return 0;
-}
-
-// The batch axis (sumcheck.cuh's *_b kernels): a round launch over a
-// (blocks, B) grid, a tail over B blocks; t as above, instance 0's pointers.
-extern "C" int host_round_b(int sc1, void* const* t, int64_t pairs, int fold, int blocks, int D, int B,
-                            int64_t s_stride, int64_t ist) {
-  using U = uint32_t*;
-  using W = unsigned long long*;
-  using C = const uint32_t*;
-  if (sc1)
-    shim_launch2(blocks, B, sck::kThreads, [&] {
-      sc1_round_b_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), C(t[6]), U(t[7]), U(t[8]), U(t[9]),
-                         U(t[10]), U(t[11]), U(t[12]), U(t[13]), U(t[14]), U(t[15]), U(t[16]), W(t[17]), pairs, fold,
-                         D, s_stride, ist);
-    });
-  else
-    shim_launch2(blocks, B, sck::kThreads, [&] {
-      prod2_round_b_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), U(t[6]), U(t[7]), U(t[8]),
-                           W(t[9]), pairs, fold, ist);
-    });
-  return 0;
-}
-
-extern "C" int host_tail_b(int sc1, void* const* t, int64_t pairs0, int fold, int rounds, int D, int B,
-                           int64_t s_stride, int64_t ist) {
-  using U = uint32_t*;
-  using C = const uint32_t*;
-  const unsigned threads = (unsigned)std::min<int64_t>(sck::kTailThreads, std::max<int64_t>(32, 4 * pairs0));
-  if (sc1)
-    shim_launch(B, threads, [&] {
-      sc1_tail_b_kernel(C(t[0]), C(t[1]), C(t[2]), C(t[3]), C(t[4]), C(t[5]), U(t[6]), C(t[7]), U(t[8]), U(t[9]),
-                        U(t[10]), U(t[11]), U(t[12]), U(t[13]), pairs0, fold, rounds, D, s_stride, ist);
+                      U(t[10]), U(t[11]), U(t[12]), U(t[13]), pairs0, fold, rounds, D, s_stride, ist);
     });
   else
     shim_launch(B, threads, [&] {
-      sc2_tail_b_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), pairs0, fold, rounds, ist);
+      sc2_tail_kernel(C(t[0]), C(t[1]), U(t[2]), U(t[3]), U(t[4]), U(t[5]), pairs0, fold, rounds, ist);
     });
   return 0;
 }
@@ -279,8 +244,7 @@ def lib(tmp_path_factory):
     lib.host_blake2s_batch.argtypes = [vp, vp, i64, i32]
     lib.host_sample_fr.argtypes = [vp, ctypes.c_uint32, vp]
     lib.host_sample_fr.restype = ctypes.c_uint32
-    lib.host_round.argtypes = lib.host_tail.argtypes = [i32, vp, i64, i32, i32, i32]
-    lib.host_round_b.argtypes = lib.host_tail_b.argtypes = [i32, vp, i64, i32, i32, i32, i32, i64, i64]
+    lib.host_round.argtypes = lib.host_tail.argtypes = [i32, vp, i64, i32, i32, i32, i32, i64, i64]
     lib.host_acc_sum.argtypes = [vp, i64, vp, vp]
     lib.host_mod_r9.argtypes = [vp, vp]
     return lib
@@ -546,11 +510,6 @@ def test_ladder_kernel_sources_match_plain(lib, shape):
     assert torch.equal(ev, want_ev)
 
 
-def _ptr(t: torch.Tensor) -> int:
-    assert t.is_contiguous()
-    return t.data_ptr()
-
-
 @pytest.mark.parametrize("nwords", [0, 1, 8, 10, 16, 17, 32, 162])
 def test_blake2s_kernel_source_matches_hashlib(lib, nwords):
     """blake2s.cuh on 3 messages of `nwords` words: the lengths around the
@@ -587,10 +546,6 @@ def _fr_table(rng, n):
     return tf.encode_mont(tf.FR, [rng.randrange(hf.R) for _ in range(n)])
 
 
-def _el(rng):
-    return _fr_table(rng, 1).reshape(8).contiguous()
-
-
 def _zeros(*shape):
     return torch.zeros(shape, dtype=torch.int32)
 
@@ -600,111 +555,6 @@ def _coef(rng, d):
     them on: K canonical, then K R."""
     k = [rng.randrange(hf.R) for _ in range(3 * d)]
     return tf.encode_ints(tf.FR, k + [x * tf.FR.r_mod % hf.R for x in k]).t().reshape(6, d, 8).contiguous()
-
-
-def _run_both(lib_call, plain, args: dict):
-    """Run the host-compiled kernel and the plain version on copies of the
-    same arguments; return both copies."""
-    kern = {k: v.clone() for k, v in args.items()}
-    ref = {k: v.clone() for k, v in args.items()}
-    lib_call(kern)
-    got = plain(ref)
-    return kern, ref, got
-
-
-# (pairs, fold): the round kernels at 1, 2 and 3 blocks (32 pairs a block),
-# so the partials, the ticket and the last block's transcript step all run
-ROUND_SHAPES = [(16, 0), (64, 1), (96, 1)]
-
-
-@pytest.mark.parametrize("shape", ROUND_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
-@pytest.mark.parametrize("kernel", ["sc1_round", "prod2_round"])
-def test_round_kernel_sources_match_plain(lib, kernel, shape):
-    """K6 and K7 with their transcript step (sumcheck.cuh, fs.cuh) against
-    protocol.fused's plain rounds: the folded tables, the evaluations, the
-    challenge canonical and Montgomery, pre and the chain state; the ticket
-    counter and the sums are back at 0."""
-    from spartan_tpu_torch.protocol import fused
-
-    pairs, fold = shape
-    rng = random.Random(pairs * 7 + fold)
-    width = (4 if fold else 2) * pairs
-    nt = 3 if kernel == "sc1_round" else 2
-    log_n = 5
-    args = {f"t{k}": _fr_table(rng, width) for k in range(nt)}
-    d = log_n + 3 if nt == 3 else 3
-    if nt == 3:
-        args |= {"s": _fr_table(rng, pairs), "consts": fused.emit_consts(log_n + 2, "cpu"), "tor_i": _el(rng),
-                 "tor_next": _el(rng), "pre": _el(rng), "coef": _coef(rng, d)}
-    args |= {"state": _el(rng), "evals": _zeros(d, 8), "r_out": _zeros(8), "r_mont": _el(rng), "ctr": _zeros(8)}
-    outs = {f"o{k}": _zeros(8, 2 * pairs) for k in range(nt)}
-    blocks = fused.round_blocks(pairs)
-    assert blocks == (pairs + 31) // 32
-
-    def kernel_call(a):
-        a |= outs if fold else {f"o{k}": a[f"t{k}"] for k in range(nt)}
-        a["sums"] = _zeros(fused.SUMS_ROWS, 8)
-        ptrs = (ctypes.c_void_p * len(a))(*[_ptr(t) for t in a.values()])
-        assert lib.host_round(nt == 3, ptrs, pairs, fold, blocks, d) == 0
-
-    def plain(a):
-        tabs = [a[f"t{k}"] for k in range(nt)]
-        if nt == 3:
-            return fused.sc1_round_plain(*tabs, a["s"], bool(fold), a["consts"], a["tor_i"], a["tor_next"],
-                                         a["pre"], a["coef"], a["state"], a["evals"], a["r_out"], a["r_mont"])
-        return fused.prod2_round_plain(*tabs, bool(fold), a["state"], a["evals"], a["r_out"], a["r_mont"])
-
-    kern, ref, want = _run_both(kernel_call, plain, args)
-    for k in args:
-        assert torch.equal(kern[k], ref[k]), k
-    assert not kern["sums"].any()
-    if fold:
-        assert all(torch.equal(kern[f"o{k}"], want[k]) for k in range(nt))
-
-
-# (pairs0, fold): the tail from 4 pairs (warp 0 alone), from 16 without the
-# fold (round 0 of a 2^5 phase) and from 32 (every warp, then warp 0)
-TAIL_SHAPES = [(4, 1), (16, 0), (32, 1)]
-
-
-@pytest.mark.parametrize("shape", TAIL_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
-@pytest.mark.parametrize("kernel", ["sc1_tail", "sc2_tail"])
-def test_tail_kernel_sources_match_plain(lib, kernel, shape):
-    """The one-block tails (sumcheck.cuh) against protocol.fused's plain
-    tails: every round's evaluations and challenge, r_mont, pre, the chain
-    state, and for sumcheck 1 round 4's va, vb, vc and r_a, r_b, r_c."""
-    from spartan_tpu_torch.protocol import fused
-
-    pairs0, fold = shape
-    rounds = pairs0.bit_length()
-    rng = random.Random(pairs0 * 5 + fold)
-    width = (4 if fold else 2) * pairs0
-    nt = 3 if kernel == "sc1_tail" else 2
-    log_n = 6
-    args = {f"t{k}": _fr_table(rng, width) for k in range(nt)}
-    d = log_n + 3 if nt == 3 else 3
-    if nt == 3:
-        args |= {"s_cat": torch.cat([_fr_table(rng, pairs0 >> k).reshape(-1) for k in range(rounds)]),
-                 "consts": fused.emit_consts(log_n + 2, "cpu"), "tor": _fr_table(rng, rounds).t().contiguous(),
-                 "pre": _el(rng), "coef": _coef(rng, d)}
-    args |= {"state": _el(rng), "evals": _zeros(rounds, d, 8), "rs": _zeros(rounds, 8), "r_mont": _el(rng)}
-    if nt == 3:
-        args |= {"vabc": _zeros(3, 8), "rabc": _zeros(3, 8)}
-
-    def kernel_call(a):
-        ptrs = (ctypes.c_void_p * len(a))(*[_ptr(t) for t in a.values()])
-        assert lib.host_tail(nt == 3, ptrs, pairs0, fold, rounds, d) == 0
-
-    def plain(a):
-        tabs = [a[f"t{k}"] for k in range(nt)]
-        if nt == 3:
-            return fused.sc1_tail_plain(*tabs, a["s_cat"], bool(fold), a["consts"], a["tor"], a["pre"], a["coef"],
-                                        a["state"], a["evals"], a["rs"], a["r_mont"], a["vabc"], a["rabc"])
-        return fused.sc2_tail_plain(*tabs, bool(fold), a["state"], a["evals"], a["rs"], a["r_mont"])
-
-    kern, ref, _ = _run_both(kernel_call, plain, args)
-    for k in args:
-        assert torch.equal(kern[k], ref[k]), k
 
 
 def _batch_args(kernel: str, pairs: int, fold: int, bsz: int, log_n: int, seed: int):
@@ -748,26 +598,32 @@ def _batch_args(kernel: str, pairs: int, fold: int, bsz: int, log_n: int, seed: 
 
 
 # (pairs, fold, B): round launches of 1 to 3 blocks an instance (32 pairs a
-# block) over 2 and 3 instances, so each instance's partials, ticket and
-# last block run with other instances' blocks between them
-ROUND_B_SHAPES = [(16, 0, 3), (64, 1, 2), (96, 1, 3)]
+# block) over 1 to 3 instances, so each instance's partials, ticket and last
+# block run, with other instances' blocks between them where B > 1
+ROUND_SHAPES = [(16, 0, 1), (64, 1, 1), (96, 1, 1), (16, 0, 3), (64, 1, 2), (96, 1, 3)]
 
 
-@pytest.mark.parametrize("shape", ROUND_B_SHAPES, ids=lambda s: "p{}-f{}-b{}".format(*s))
-@pytest.mark.parametrize("kernel", ["sc1_round_b", "prod2_round_b"])
-def test_batched_round_kernel_sources_match_plain(lib, kernel, shape):
-    """The batch axis of K6 and K7 with their transcript step: a (blocks, B)
-    grid, blocks of different instances interleaved by the shim, against
-    protocol.fused's plain versions on each instance. Every instance's
-    tables, evaluations, challenge, pre, coefficients and chain state, and
-    its ticket counter and sums back at 0: a counter or sums shared across
-    instances would hand the transcript step to the wrong block."""
+def _shape_id(shape) -> str:
+    """p{pairs}-f{fold}, and -b{B} beyond one instance."""
+    return "p{}-f{}".format(*shape[:2]) + ("" if shape[2] == 1 else f"-b{shape[2]}")
+
+
+@pytest.mark.parametrize("shape", ROUND_SHAPES, ids=_shape_id)
+@pytest.mark.parametrize("kernel", ["sc1_round", "prod2_round"])
+def test_round_kernel_sources_match_plain(lib, kernel, shape):
+    """K6 and K7 with their transcript step (sumcheck.cuh, fs.cuh) on a
+    (blocks, B) grid, blocks of different instances interleaved by the shim,
+    against protocol.fused's plain rounds on each instance: every
+    instance's folded tables, evaluations, challenge canonical and
+    Montgomery, pre, coefficients and chain state, and its ticket counter
+    and sums back at 0: a counter or sums shared across instances would hand
+    the transcript step to the wrong block."""
     from spartan_tpu_torch.protocol import fused
 
     pairs, fold, bsz = shape
-    sc1 = kernel == "sc1_round_b"
+    sc1 = kernel == "sc1_round"
     log_n = 5
-    blocks = fused.round_blocks_b(pairs, bsz)
+    blocks = fused.round_blocks(pairs, bsz)
     assert blocks == (pairs + 31) // 32 and blocks * bsz <= fused.MAX_GRID_B
     tabs, s, kbuf, kv, d, _r = _batch_args(kernel, pairs, fold, bsz, log_n, pairs * 11 + fold)
     _t, _s, pbuf, pv, _d, _r = _batch_args(kernel, pairs, fold, bsz, log_n, pairs * 11 + fold)
@@ -781,34 +637,35 @@ def test_batched_round_kernel_sources_match_plain(lib, kernel, shape):
         ptrs = [*tabs, *st, *outs, kv["sums"]]
     arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     s_stride = s.stride(0) if sc1 else 0
-    assert lib.host_round_b(sc1, arr, pairs, fold, blocks, d, bsz, s_stride, kbuf.size) == 0
+    assert lib.host_round(sc1, arr, pairs, fold, blocks, d, bsz, s_stride, kbuf.size) == 0
     if sc1:
-        want = fused.sc1_round_b_plain(*tabs, s, bool(fold), consts, pv["tor"][:, 0], pv["tor"][:, 1], pv["pre"],
-                                       pv["coef"], pv["state"], pv["evals"][:, 0], pv["rs"][:, 0], pv["r_mont"])
+        want = fused.sc1_round_plain(*tabs, s, bool(fold), consts, pv["tor"][:, 0], pv["tor"][:, 1], pv["pre"],
+                                     pv["coef"], pv["state"], pv["evals"][:, 0], pv["rs"][:, 0], pv["r_mont"])
     else:
-        want = fused.prod2_round_b_plain(*tabs, bool(fold), pv["state"], pv["evals"][:, 0], pv["rs"][:, 0],
-                                         pv["r_mont"])
+        want = fused.prod2_round_plain(*tabs, bool(fold), pv["state"], pv["evals"][:, 0], pv["rs"][:, 0],
+                                       pv["r_mont"])
     assert torch.equal(kbuf.dev, pbuf.dev)  # every instance's transcript arrays; ctr and sums at 0
     assert not kv["ctr"].any() and not kv["sums"].any()
     if fold:
         assert all(torch.equal(o, w) for o, w in zip(outs, want))
 
 
-# (pairs0, fold): the tails from 4 pairs and from 16 without the fold, at B = 2
-TAIL_B_SHAPES = [(4, 1), (16, 0)]
+# (pairs0, fold): the tail from 4 pairs (warp 0 alone), from 16 without the
+# fold (round 0 of a 2^5 phase) and from 32 (every warp, then warp 0)
+TAIL_SHAPES = [(4, 1), (16, 0), (32, 1)]
 
 
-@pytest.mark.parametrize("shape", TAIL_B_SHAPES, ids=lambda s: "p{}-f{}".format(*s))
-@pytest.mark.parametrize("kernel", ["sc1_tail_b", "sc2_tail_b"])
-def test_batched_tail_kernel_sources_match_plain(lib, kernel, shape):
-    """The batch axis of the one-block tails: a block an instance, against
-    protocol.fused's plain tails on each instance; every round's
-    evaluations and challenge, r_mont, pre, the chain state and round 4's
-    values of every instance."""
+@pytest.mark.parametrize("shape", [(*sh, bsz) for bsz in (1, 2) for sh in TAIL_SHAPES], ids=_shape_id)
+@pytest.mark.parametrize("kernel", ["sc1_tail", "sc2_tail"])
+def test_tail_kernel_sources_match_plain(lib, kernel, shape):
+    """The one-block tails (sumcheck.cuh), a block an instance, against
+    protocol.fused's plain tails on each instance: every round's
+    evaluations and challenge, r_mont, pre, the chain state, and for
+    sumcheck 1 round 4's va, vb, vc and r_a, r_b, r_c, of every instance."""
     from spartan_tpu_torch.protocol import fused
 
-    pairs0, fold = shape
-    bsz, log_n, sc1 = 2, 6, kernel == "sc1_tail_b"
+    pairs0, fold, bsz = shape
+    log_n, sc1 = 6, kernel == "sc1_tail"
     tabs, s, kbuf, kv, d, rounds = _batch_args(kernel, pairs0, fold, bsz, log_n, pairs0 * 13 + fold)
     _t, _s, pbuf, pv, _d, _r = _batch_args(kernel, pairs0, fold, bsz, log_n, pairs0 * 13 + fold)
     consts = fused.emit_consts(log_n + 2, "cpu")
@@ -818,12 +675,12 @@ def test_batched_tail_kernel_sources_match_plain(lib, kernel, shape):
     else:
         ptrs = [*tabs, kv["state"][0], kv["evals"][0], kv["rs"][0], kv["r_mont"][0]]
     arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
-    assert lib.host_tail_b(sc1, arr, pairs0, fold, rounds, d, bsz, s.stride(0) if sc1 else 0, kbuf.size) == 0
+    assert lib.host_tail(sc1, arr, pairs0, fold, rounds, d, bsz, s.stride(0) if sc1 else 0, kbuf.size) == 0
     if sc1:
-        fused.sc1_tail_b_plain(*tabs, s, bool(fold), consts, pv["tor"][:, :rounds], pv["pre"], pv["coef"],
-                               pv["state"], pv["evals"], pv["rs"], pv["r_mont"], pv["vabc"], pv["rabc"])
+        fused.sc1_tail_plain(*tabs, s, bool(fold), consts, pv["tor"][:, :rounds], pv["pre"], pv["coef"],
+                             pv["state"], pv["evals"], pv["rs"], pv["r_mont"], pv["vabc"], pv["rabc"])
     else:
-        fused.sc2_tail_b_plain(*tabs, bool(fold), pv["state"], pv["evals"], pv["rs"], pv["r_mont"])
+        fused.sc2_tail_plain(*tabs, bool(fold), pv["state"], pv["evals"], pv["rs"], pv["r_mont"])
     assert torch.equal(kbuf.dev, pbuf.dev)
 
 

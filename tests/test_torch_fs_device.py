@@ -196,11 +196,12 @@ def test_plain_phases_match_jax_fused(log_n):
     ints = lambda xs: [int(x, 16) for x in xs]  # noqa: E731
     tabs, tor, state = _phase_inputs(log_n)
     mont = [tf.encode_mont(tf.FR, t) for t in tabs]
-    r1 = fused.sc1_phase(*mont[:3], tm.eq_suffix_tables(tor, "cpu"), tor, state)
+    suffix = [t[None] for t in tm.eq_suffix_tables(tor, "cpu")]
+    (r1,) = fused.sc1_phase(*(t[None] for t in mont[:3]), suffix, [tor], [state])  # B = 1
     assert r1.evals == [ints(e) for e in want["sc1"]["evals"]]
     assert (r1.rs, r1.vabc, r1.rabc) == (ints(want["sc1"]["rs"]), ints(want["sc1"]["vabc"]),
                                          ints(want["sc1"]["rabc"]))
     assert r1.state.hex() == want["sc1"]["state"]
-    r2 = fused.sc2_phase(mont[3], mont[4], state)
+    (r2,) = fused.sc2_phase(mont[3][None], mont[4][None], [state])
     assert r2.evals == [ints(e) for e in want["sc2"]["evals"]] and r2.rs == ints(want["sc2"]["rs"])
     assert r2.state.hex() == want["sc2"]["state"]

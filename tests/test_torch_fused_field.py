@@ -77,9 +77,9 @@ def test_normalize_matches_jax(group):
 def test_eq_tables_match_jax(nv):
     pt = _fr(nv, 30 + nv)
     jp, tp = jf.encode_mont(jf.FR, pt), tf.encode_mont(tf.FR, pt)
-    full = tmle.eq_table(tp)
+    full = tmle.eq_table(tp[None])[0]
     assert torch.equal(full, tf.repack16(np.asarray(jmle.eq_table(jp))))
-    suffix = tmle.eq_suffix_tables_mont(tp)
+    suffix = [t[0] for t in tmle.eq_suffix_tables_mont(tp[None])]
     want = jmle.eq_suffix_tables_mont(jp)
     assert len(suffix) == len(want) == nv + 1
     assert all(torch.equal(a, tf.repack16(np.asarray(b))) for a, b in zip(suffix, want))
@@ -111,8 +111,8 @@ def test_fused_wrappers_never_fall_back_off_cpu(which):
     meta = torch.zeros((8, 4), dtype=torch.int32, device="meta")
     call = {
         "normalize": lambda: tcv.normalize(tcv.infinity("g2", 4, device="meta")),
-        "eq_table": lambda: tmle.eq_table(meta),
-        "eq_suffix": lambda: tmle.eq_suffix_tables_mont(meta),
+        "eq_table": lambda: tmle.eq_table(meta[None]),
+        "eq_suffix": lambda: tmle.eq_suffix_tables_mont(meta[None]),
         "quotients": lambda: tscheme._quotients_and_eval(torch.zeros((8, 16), dtype=torch.int32, device="meta"),
                                                           meta),
     }[which]

@@ -118,31 +118,19 @@ def test_phase_kernel_table_names_sources():
 
 
 def test_batch_kernels_are_phase_kernels_chip_smoke_checks():
-    """The batch-axis sumcheck kernels are registered phase kernels, each
-    the batch axis of one single-instance kernel, and chip_smoke.py holds
-    each of them against its plain version (BATCH_PATH)."""
+    """The sumcheck-phase kernels are one set, each on a batch axis (its
+    entry point takes B; the single prove is B = 1), and chip_smoke.py holds
+    each of them against its plain version (PHASE_PATH)."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
-    assert set(chip_smoke.BATCH_PATH) == {k for k in kernels.PHASE_KERNELS if k.endswith("_b")}
-    assert {k[:-2] for k in chip_smoke.BATCH_PATH} == set(chip_smoke.PHASE_PATH)
-    assert all(kernels.PHASE_KERNELS[k][1].startswith("spartan_tpu/protocol/batched.py:") for k in chip_smoke.BATCH_PATH)
-
-
-@pytest.mark.gpu
-def test_batch_kernels_match_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; on one: python -m pytest --noconftest tests/test_torch_imports.py -m gpu")
-    sys.path.insert(0, str(REPO))
-    import chip_smoke
-
-    old = chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B
-    chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B = 10, (1, 3), (3,), 3
-    try:
-        rows = chip_smoke.phase_batch_kernels(torch.device("cuda", 0), chip_smoke.Card())
-    finally:
-        chip_smoke.FS_LOG_N, chip_smoke.BATCH_CHECK_B, chip_smoke.BATCH_TIMED_B, chip_smoke.BATCH_B = old
-    assert [r["name"] for r in rows] == list(chip_smoke.BATCH_PATH)
+    assert set(chip_smoke.PHASE_PATH) == set(kernels.PHASE_KERNELS) - {"blake2s_batch"}
+    assert len(kernels.PHASE_KERNELS) == 5 and not any(k.endswith("_b") for k in kernels.PHASE_KERNELS)
+    text = (kernels.CSRC / "sumcheck_ops.cu").read_text()
+    for k in chip_smoke.PHASE_PATH:
+        m = re.search(r"extern \"C\" int spk_" + k + r"\(([^)]*)\)", text)
+        assert "int64_t B" in [p.strip() for p in m.group(1).split(",")], k
+    assert len(re.findall(r"__global__", (kernels.CSRC / "sumcheck.cuh").read_text())) == len(chip_smoke.PHASE_PATH)
 
 
 def test_fused_kernel_table_names_sources():
@@ -185,15 +173,16 @@ def test_phase_kernels_match_plain_on_card():
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
-    old = chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED
-    chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = 8, 1 << 10
+    knobs = ("FS_LOG_N", "B2S_TIMED", "BATCH_CHECK_B", "BATCH_TIMED_B", "BATCH_B")
+    old = [getattr(chip_smoke, k) for k in knobs]
+    for k, v in zip(knobs, (10, 1 << 10, (1, 3), (3,), 3)):
+        setattr(chip_smoke, k, v)
     try:
         rows = chip_smoke.phase_fs_kernels(torch.device("cuda", 0), chip_smoke.Card())
     finally:
-        chip_smoke.FS_LOG_N, chip_smoke.B2S_TIMED = old
+        for k, v in zip(knobs, old):
+            setattr(chip_smoke, k, v)
     assert [r["name"] for r in rows] == list(chip_smoke.PHASE_PATH)
-    assert set(chip_smoke.PHASE_PATH) == (set(kernels.PHASE_KERNELS) - {"blake2s_batch", "sc1_round_stamped"}
-                                          - set(chip_smoke.BATCH_PATH))
 
 
 @pytest.mark.gpu

@@ -49,7 +49,7 @@ def test_fold_eval_at_and_scale():
 def test_eq_tables():
     pt = _vals(4, 3)
     jp, tp = _both(pt)
-    assert _same(jmle.eq_table(jp), tmle.eq_table(tp))
+    assert _same(jmle.eq_table(jp), tmle.eq_table(tp[None])[0])
     js, ts = jmle.eq_suffix_tables(pt), tmle.eq_suffix_tables(pt)
     assert len(js) == len(ts) == 5
     assert all(_same(a, b) for a, b in zip(js, ts))
@@ -68,7 +68,7 @@ def test_sparse_products(which):
     jt, tt = _both(_vals(N, 6))
     jcoo = (jnp_i32(rows), jnp_i32(cols), jv)
     tcoo = (torch.from_numpy(rows), torch.from_numpy(cols), tv)
-    assert _same(getattr(jsparse, which)(jcoo, jt, N), getattr(tsparse, which)(tcoo, tt, N))
+    assert _same(getattr(jsparse, which)(jcoo, jt, N), getattr(tsparse, which)(tcoo, tt[None], N)[0])
 
 
 def jnp_i32(a):

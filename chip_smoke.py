@@ -87,6 +87,14 @@ exits non-zero:
    on the same keys; then ``save_keys`` of those keys into a temporary
    directory and ``load_keys`` onto the card (times and the file's size):
    a prove with the reloaded keys must give the same SHA-256.
+8. the witness's encoding (``fo.encode_witness``): bit-exact against
+   ``fo.encode_mont`` on the card at 2^16 (phase 4's witness, and with the
+   edge values 0, 1, m - 1, m, 2^256 - 1, 2^300, -1, -m - 5 at its head)
+   and at 64 x 2^16 (phase 6's instances, ``encode_witness_many`` against
+   the stack of the singles), each one count of its lanes and one fr_mul
+   launch over them; both functions' host ms at 2^16, and the fr_mul
+   launch's device ms at 2^16 and 64 x 2^16 lanes beside its bound. The
+   proves of phases 4, 6 and 7 encode their witnesses through it.
 
 The line before the last is a JSON object with one entry per kernel entry
 point (those whose work moved into the fused kernels, launched in no step
@@ -1353,7 +1361,7 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
     by entry point (18 sumcheck launches; one g1_normalize and one
     g2_normalize a stage) are asserted. Prints the warm batched and the
     sequential wall time and proofs/s, the batched spans, and (phase_profile)
-    device time by entry point."""
+    device time by entry point. Returns the instances."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1441,6 +1449,7 @@ def phase_batched(dev, card: Card, keys, log_n: int = 16, bsz: int = BATCH_B) ->
     for label in BATCH_SPANS[4:7:2]:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one at the end "
               "of the phase")
+    return instances
 
 
 SHARDED_D = (2, 4)  # shards of phase 7's sharded proves
@@ -1538,6 +1547,67 @@ def phase_sharded(dev, keys, instance, prove, log_n: int = 16) -> None:
     print(f"persist: save_keys {save_s:.3f} s, file {size} bytes ({size / 2**20:.1f} MiB), load_keys onto the card "
           f"{load_s:.3f} s; the prove with the reloaded keys ({prove_s:.3f} s) gives SHA-256 {sha}, equal", flush=True)
     print(f"sharded: phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_encode(dev, card: Card, instance, instances, seed: int = 1357) -> None:
+    """The witness's encoding on the card: ``fo.encode_witness`` against
+    ``fo.encode_mont`` at 2^16 (phase 4's witness, and the same with edge
+    values at its head) and ``fo.encode_witness_many`` against the stack of
+    ``encode_mont`` at 64 x 2^16 (phase 6's instances), bit-exact, each call
+    one count of its lanes under WITNESS_ENCODE and one fr_mul launch over
+    them. Prints both functions' host ms at 2^16 (median of 7 calls, each
+    ending in a synchronize) and the fr_mul launch's device ms at 2^16 and
+    64 x 2^16 lanes beside its bound."""
+    from spartan_tpu_torch import kernels
+    from spartan_tpu_torch.ops import field as fo
+    from spartan_tpu_torch.ops.field import FR
+
+    m = FR.modulus
+    v, w = instance
+    xs = list(v) + list(w)
+    edges = [0, 1, m - 1, m, (1 << 256) - 1, 1 << 300, -1, -m - 5]
+    rows = [list(vi) + list(wi) for vi, wi in instances]
+    for label, enc, args, want in (
+            ("2^16, phase 4's witness", fo.encode_witness, xs, lambda: fo.encode_mont(FR, xs, dev)),
+            ("2^16, edge values at the head", fo.encode_witness, edges + xs[len(edges):],
+             lambda: fo.encode_mont(FR, edges + xs[len(edges):], dev)),
+            (f"{len(rows)} x 2^16, phase 6's instances", fo.encode_witness_many, rows,
+             lambda: torch.stack([fo.encode_mont(FR, r, dev) for r in rows]))):
+        kernels.reset_counts()
+        got = enc(FR, args, dev)
+        lanes = got.numel() // FR.nlimb
+        counted = (dict(kernels.LANES[fo.WITNESS_ENCODE]), dict(kernels.LANES["fr_mul"]))
+        check(counted == ({(lanes,): 1}, {(lanes,): 1}),
+              f"encode ({label}): counted {counted}, not one call and one fr_mul launch of {lanes} lanes")
+        check(torch.equal(got, want()), f"encode ({label}): differs from encode_mont")
+        print(f"encode: {label}: bit-exact against encode_mont; one count and one fr_mul launch of {lanes} lanes",
+              flush=True)
+        del got
+
+    def host_ms(fn) -> float:
+        walls = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+        return sorted(walls)[3]
+
+    ms = {f.__name__: host_ms(lambda f=f: f(FR, xs, dev)) for f in (fo.encode_witness, fo.encode_mont)}
+    print(card_line(), flush=True)
+    print(f"encode: host ms at 2^16 (median of 7, to a synchronize): encode_witness {ms['encode_witness']:.3f}, "
+          f"encode_mont {ms['encode_mont']:.3f}", flush=True)
+    rng = np.random.default_rng(seed)
+    for lanes in (len(xs), len(rows) * len(xs)):
+        a = _random_field(FR, lanes, rng, dev)
+        r2 = fo.encode_ints(FR, [FR.r_mod * FR.r_mod % m], dev).expand(FR.nlimb, lanes).contiguous()
+        out = torch.empty_like(a)
+        device_ms = graph_ms("fr_mul", out, a, r2)
+        bound, by = card.bound(PRODUCTS["fr_mul"] * lanes, LANE_BYTES["fr_mul"] * lanes)
+        print(f"encode: fr_mul by R^2 at {lanes} lanes: device {device_ms:.5f} ms, bound {bound:.5f} ms ({by})",
+              flush=True)
+        del a, r2, out
 
 
 SUMCHECK_SPANS = ("Prove Sumcheck 1 (fused)", "Prove Sumcheck 2 (fused)", "Prove Sumcheck 1", "Prove 4",
@@ -1720,8 +1790,9 @@ def main() -> int:
         check(inside.get(label) == 1, f"{label}: {inside.get(label)} copies to the host, not the one "
               "at the end of the phase")
     phase_profile(host_loop(prove), "host loop", warm=3)
-    phase_batched(dev, card, keys)
+    instances = phase_batched(dev, card, keys)
     phase_sharded(dev, keys, instance, prove)
+    phase_encode(dev, card, instance, instances)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["main_path"] = row["name"] not in MOVED or row["launches"] > 0

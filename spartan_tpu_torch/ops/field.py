@@ -9,6 +9,14 @@ R = 2^(32K): 2^256 for Fr and 2^384 for Fp, the same R as the JAX package's
 16-bit limbs, so a JAX limb array converts by packing limb pairs
 (``repack16``).
 
+A prover's witness is encoded by ``encode_witness`` (B of them of one
+length by ``encode_witness_many``): the canonical bytes in C-level passes
+on the host, one upload, and the Montgomery form on the device, one
+``to_mont`` over every lane. Each call adds one to
+``kernels.LANES[WITNESS_ENCODE][(lanes,)]``. The other host codecs
+(``encode_mont`` and the rest) serve the few elements of challenges,
+points and step rows, and the matrices' values in the index.
+
 ``add``, ``sub`` and ``mont_mul`` are the wrappers of the hand-written
 kernels K1 (Fr, ``csrc/fr_ops.cu``) and K2 (Fp, ``csrc/fp_ops.cu``), and
 ``fermat_inv`` of K2's inversion (``csrc/fp_inv.cuh``). For a
@@ -23,6 +31,7 @@ card.
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
+from itertools import repeat
 
 import numpy as np
 import torch
@@ -36,10 +45,11 @@ __all__ = [
     "pow_const", "fermat_inv", "inv", "batch_inv", "zeros", "ones_mont", "reduce_wide",
     "sum_mod", "add_plain", "sub_plain", "mont_mul_plain", "fermat_inv_plain",
     "encode_ints", "decode_ints", "encode_mont", "decode_mont", "repack16", "unpack16",
-    "ints_to_limbs", "limbs_to_ints",
+    "ints_to_limbs", "limbs_to_ints", "encode_witness", "encode_witness_many", "WITNESS_ENCODE",
 ]
 
 MASK16 = 0xFFFF
+WITNESS_ENCODE = "witness_encode"  # the counter of witness encodes in kernels.LANES, keyed by (lanes,)
 
 
 @dataclass(frozen=True)
@@ -104,6 +114,51 @@ def encode_mont(spec: FieldSpec, xs, device="cpu") -> torch.Tensor:
     """ints -> Montgomery-form (K, N) limbs (the multiply by R is on the host)."""
     m, r = spec.modulus, spec.r_mod
     return torch.from_numpy(ints_to_limbs([x % m * r % m for x in xs], spec.nlimb)).to(device)
+
+
+def encode_witness(spec: FieldSpec, xs, device="cpu") -> torch.Tensor:
+    """A whole witness: ints -> Montgomery-form (K, N) limbs on ``device``,
+    equal to ``encode_mont``'s. See ``encode_witness_many``."""
+    return encode_witness_many(spec, [xs], device)[0]
+
+
+def encode_witness_many(spec: FieldSpec, xss, device="cpu") -> torch.Tensor:
+    """B witnesses of one length N: ints -> Montgomery-form (B, K, N) limbs
+    on ``device``, equal to the stack of ``encode_mont`` of each.
+
+    The host writes x mod m of every x as 4K little-endian bytes into one
+    buffer (pinned where the device is a card), a witness at a time, each
+    in C-level passes with no Python loop body (``_canonical_bytes``). The
+    buffer goes up in one copy as (B, N, K) words; the device turns them to
+    (K, B, N), multiplies all B N lanes by R^2 in one ``to_mont`` (one
+    ``fr_mul`` launch on a card, the plain version on the CPU) and copies
+    the result into the (B, K, N) table. Counted under WITNESS_ENCODE by
+    B N lanes."""
+    bsz, n, k = len(xss), len(xss[0]), spec.nlimb
+    if any(len(xs) != n for xs in xss[1:]):
+        raise ValueError("witnesses of one length expected")
+    kernels.LANES[WITNESS_ENCODE][(bsz * n,)] += 1
+    dev = torch.device(device)
+    # the result is allocated first: the temporaries after it are all freed
+    # here, so the allocator's cache is left as the one table would leave it
+    z = torch.empty((bsz, k, n), dtype=torch.int32, device=dev)
+    host = torch.empty(bsz * n * k, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    raw = host.numpy().view(np.uint8).reshape(bsz, n * 4 * k)
+    for b, xs in enumerate(xss):  # a witness a pass: its objects stay in the caches
+        raw[b] = np.frombuffer(_canonical_bytes(xs, spec.modulus, 4 * k), np.uint8)
+    canon = host.to(dev, non_blocking=True).view(bsz, n, k).permute(2, 0, 1).contiguous()
+    z.copy_(to_mont(spec, canon).transpose(0, 1))  # (K, B, N) -> (B, K, N)
+    return z
+
+
+def _canonical_bytes(xs, m: int, nb: int) -> bytes:
+    """x mod m of every x in ``xs`` as ``nb`` little-endian bytes, joined.
+    The reduction runs over a witness with some x outside [0, m); in any
+    other x mod m is x, and a pass of comparisons (``min``, ``max``) costs
+    less than the division."""
+    if min(xs) < 0 or max(xs) >= m:
+        xs = map(int.__mod__, xs, repeat(m))
+    return b"".join(map(int.to_bytes, xs, repeat(nb), repeat("little")))
 
 
 def decode_mont(spec: FieldSpec, t) -> list:

@@ -5,6 +5,8 @@ the instances on a batch axis, (B, 8, n) tables with each instance a
 contiguous (8, n) table, and launches once for the batch wherever the JAX
 package dispatches once for it:
 
+- the witnesses are encoded in one host pass, one upload and one
+  ``fr_mul`` launch (``fo.encode_witness_many``);
 - the commits are ``msm_many`` calls of many problems over the shared
   bases ``pp.powers_of_g[0]``, read by index (at most COMMIT_SCALARS
   scalars a call, for memory), decoded with one ``g1_normalize`` launch
@@ -181,8 +183,7 @@ def prove_many(pk: IndexPK, instances: Sequence[Tuple[List[int], List[int]]], pp
         fss.append(fs)
 
     with span("Batch Prove 0: encode z"):  # before the commits' span, as in the JAX package
-        z = torch.stack([fo.encode_mont(FR, list(v) + list(w)) for v, w in instances])
-        z = z.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else z
+        z = fo.encode_witness_many(FR, [list(v) + list(w) for v, w in instances], dev)  # (B, 8, n)
     with span("Batch Prove 1: commits"):
         pm1s = [pr.ProverFirstMessage(commitment=c) for c in commit_many(pp, z)]
     r_vs = []

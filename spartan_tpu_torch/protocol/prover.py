@@ -189,7 +189,7 @@ def prover_init(pk: IndexPK, v: List[int], w: List[int]) -> ProverFirstState:
 
 def prover_first_round(state: ProverFirstState, pp: PublicParameter, route: Route = ONE_DEVICE):
     """Commit to z = v || w."""
-    z = fo.encode_mont(FR, state.v + state.w, pp.device)
+    z = fo.encode_witness(FR, state.v + state.w, pp.device)
     with span("Prove 1: commit z"):
         com = route.commit(pp, z)
     return (
